@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Five phases, one JSON line each; any failure ends the run with a non-zero
-exit code:
+Six phases, one JSON line each (phase 3 two); any failure ends the run with a
+non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
   2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc
@@ -18,20 +18,31 @@ exit code:
   5. allocate_cluster  the second path: the fleet-wide allocator through the
                        alloc_active_set kernel at (N, S) = (16384, 128)
                        against the float64 host solver
+  6. serve             the model zoo's serving path, build_model -> init ->
+                       prefill -> pad_cache -> greedy decode_step, for
+                       qwen2-0.5b (impl="flash", the flash_attention kernel)
+                       and mamba2-130m (impl="pallas", the ssd_scan kernel)
+                       at full width and depth: float32 parity with
+                       impl="xla", prefill + decode == forward, then 4
+                       requests of 512 tokens served in the config's bf16
 
+Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
+versions and times them beside PyTorch's own call for the same function.
 Then a line {"kernels": [...]} (per kernel: route, source, the TPU kernel it
 replaces, launches on its path, error, time, plain-version time, roofline
-bound), the card's name and power limit as nvidia-smi prints them, and the
-last line {"ok": true, "device": {...}}.
+bound, library time), the card's name and power limit as nvidia-smi prints
+them, and the last line {"ok": true, "device": {...}}.
 
 With no options the fleet is full size (S = 1440, B = 32) and each replica's
 request stream is half the reference bench's, which keeps the run to a few
 minutes; ``--requests 4960`` runs the whole stream.  The other options shrink
-the run for a rehearsal.
+the run for a rehearsal; the served models always run at their configs' full
+width and depth.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -51,9 +62,12 @@ if not torch.cuda.is_available():
              "measures the port on a GPU and does not run without one")
 
 from repro_torch import obs
+from repro_torch.configs import get_config
 from repro_torch.core import allocator
 from repro_torch.core.allocator_np import allocate_cluster_np
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.models.api import build_model
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.sim import Simulator, make_scenario, workload_for
 from repro_torch.sim.engine import DeadlineAwareAllocation, StaticPlacement
 from repro_torch.sim.event_core import NumpyBatchedEventCore
@@ -62,10 +76,18 @@ DEV = torch.device("cuda", 0)
 INF = float("inf")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
-# float32 outside the tensor cores, and float64 at half that rate
+# float32 outside the tensor cores, float64 at half that rate, and the dense
+# bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 33.5e12
+BF16_TC_FLOPS = 989e12
+
+# the serving slice: (model, impl, the kernel its prefill runs in every layer)
+SERVE = (("qwen2-0.5b", "flash", "flash_attention"),
+         ("mamba2-130m", "pallas", "ssd_scan"))
+SERVE_B, SERVE_S, SERVE_STEPS, RAGGED_S = 4, 512, 32, 300
+SEED = 0                     # of the served models' weights and prompts
 
 # n_ai_requests of the reference's fleet-size bench cell
 FULL_REQUESTS = 4960
@@ -300,6 +322,195 @@ def phase_kernels(args):
 
 
 # --------------------------------------------------------------------------- #
+# phase 3 (continued): the model kernels against their plain versions
+# --------------------------------------------------------------------------- #
+# tests/test_kernels.py's shapes, then the serving slice's (B = 4 prompts of
+# 512 tokens, and the ragged 300-token prompt)
+FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
+                (1, 512, 2, 2, 128), (3, 64, 6, 3, 16),
+                (4, 512, 14, 2, 64), (4, 300, 14, 2, 64)]
+SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
+              (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
+              (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300)]
+RMS_SHAPES = [((4, 64, 256), torch.float32), ((4, 64, 256), torch.bfloat16),
+              ((128, 512), torch.float32), ((128, 512), torch.bfloat16),
+              ((3, 5, 7, 64), torch.float32), ((3, 5, 7, 64), torch.bfloat16),
+              ((2048, 896), torch.bfloat16)]
+# the reference's tolerances (tests/test_kernels.py)
+MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_TOL = 1e-4
+
+
+def normal(rng, shape, dtype=torch.float32):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+        .to(DEV).to(dtype)
+
+
+def flash_inputs(seed, B, S, H, KV, d, dtype):
+    rng = np.random.default_rng(seed)
+    return (normal(rng, (B, S, H, d), dtype), normal(rng, (B, S, KV, d), dtype),
+            normal(rng, (B, S, KV, d), dtype))
+
+
+def ssd_inputs(seed, b, s, h, g, p, n, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = normal(rng, (b, s, h, p), dtype)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, h)).astype(
+        np.float32)).to(DEV).to(dtype)
+    A = torch.from_numpy(-rng.uniform(0.5, 1.5, h).astype(np.float32)) \
+        .to(DEV).to(dtype)
+    return x, dt, A, normal(rng, (b, s, g, n), dtype), \
+        normal(rng, (b, s, g, n), dtype)
+
+
+def assert_close(name, got, want, rtol, atol):
+    """|got - want| <= atol + rtol * |want| everywhere, all finite; returns
+    the max abs error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) \
+            or not bool((diff <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{name}: outside rtol={rtol}, atol={atol} of "
+                             f"the plain version (max abs "
+                             f"{float(diff.max()):.3e})")
+    return float(diff.max())
+
+
+def flash_bound(B, S, H, KV, d, elem):
+    bytes_ = B * S * (2 * H + 2 * KV) * d * elem        # q, k, v in; o out
+    flops = 4 * B * H * d * (S * (S + 1) // 2)          # causal q.k and p.v
+    return bytes_, flops, BF16_TC_FLOPS if elem == 2 else F32_FLOPS
+
+
+def ssd_bound(b, s, h, g, p, n, chunk, elem):
+    bytes_ = (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n) * elem \
+        + b * h * p * n * 4                              # + f32 final state
+    flops = 0
+    for c0 in range(0, s, chunk):
+        l = min(chunk, s - c0)
+        tri = l * (l + 1) // 2
+        # (C B^T) on and below the diagonal, its product with x, the carried
+        # state's contribution and the state update
+        flops += 2 * tri * (n + p) + 2 * l * n * p * 2
+    return bytes_, flops * b * h, F32_FLOPS
+
+
+def rms_bound(rows, d, elem):
+    return rows * d * 2 * elem + d * 4, 4 * rows * d, F32_FLOPS
+
+
+def bound_of(bytes_, flops, peak):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_, "flops": flops, "peak_flops": peak}
+
+
+def phase_model_kernels():
+    recs = {}
+
+    # flash_attention: f32 at rtol=atol=1e-5, bf16 at rtol=atol=2e-2
+    errs, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = flash_inputs(n, *shape, dtype)
+                got = ops.flash_attention(q, k, v, causal=causal)
+                want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal)
+                torch.cuda.synchronize()
+                tol = MODEL_TOL[dtype]
+                errs[dtype] = max(errs[dtype], assert_close(
+                    f"flash_attention{shape} {dtype} causal={causal}", got,
+                    want, tol, tol))
+                n += 1
+    shape = (SERVE_B, SERVE_S, 14, 2, 64)
+    q, k, v = flash_inputs(0, *shape, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    recs["flash_attention"] = {
+        "shape": list(shape), "dtype": "bfloat16", "cases": n,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_f32": errs[torch.float32],
+        "max_abs_err_bf16": errs[torch.bfloat16],
+        "tolerance": "f32 rtol=atol=1e-5, bf16 rtol=atol=2e-2, vs "
+                     "attention_ref on the same (widened) inputs",
+        "ms": median_ms(lambda: ops.flash_attention(q, k, v)),
+        "plain_ms": median_ms(lambda: ref.attention_ref(
+            q.float(), k.float(), v.float()).to(q.dtype), iters=20),
+        "library": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True) on [B,H,S,d] views",
+        "library_ms": median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+        **bound_of(*flash_bound(*shape, 2))}
+
+    # ssd_scan: 1e-4 against the sequential recurrence (float32), plus the
+    # serving dtype at 2e-2
+    err, n = 0.0, 0
+    for shape in SSD_SHAPES:
+        x, dt, A, B, C = ssd_inputs(n, *shape[:6])
+        y, st = ops.ssd_scan(x, dt, A, B, C, chunk=shape[6])
+        y_r, st_r = ref.ssd_scan_sequential_ref(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        err = max(err, assert_close(f"ssd_scan{shape} y", y, y_r, SSD_TOL,
+                                    SSD_TOL),
+                  assert_close(f"ssd_scan{shape} state", st, st_r, SSD_TOL,
+                               SSD_TOL))
+        n += 1
+    shape = (SERVE_B, SERVE_S, 24, 1, 64, 128, 256)
+    args = ssd_inputs(0, *shape[:6], torch.bfloat16)
+    y, st = ops.ssd_scan(*args, chunk=shape[6])
+    y_r, st_r = ref.ssd_scan_sequential_ref(*args)
+    torch.cuda.synchronize()
+    err_bf16 = max(assert_close("ssd_scan bf16 y", y, y_r, 2e-2, 2e-2),
+                   assert_close("ssd_scan bf16 state", st, st_r, 2e-2, 2e-2))
+    recs["ssd_scan"] = {
+        "shape": list(shape), "dtype": "bfloat16", "cases": n + 1,
+        "max_abs_err": max(err, err_bf16), "max_abs_err_f32": err,
+        "max_abs_err_bf16": err_bf16,
+        "tolerance": "f32 rtol=atol=1e-4 vs ssd_scan_sequential_ref (y and "
+                     "final state), bf16 rtol=atol=2e-2",
+        "ms": median_ms(lambda: ops.ssd_scan(*args, chunk=shape[6])),
+        "plain_ms": median_ms(lambda: ref.ssd_scan_sequential_ref(*args),
+                              iters=3, warmup=1, repeats=3),
+        "library": None, "library_ms": None,
+        **bound_of(*ssd_bound(*shape, 2))}
+
+    # rmsnorm: f32 at 1e-5, bf16 at 2e-2, float32 weight
+    errs, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    for shape, dtype in RMS_SHAPES:
+        rng = np.random.default_rng(n)
+        x, w = normal(rng, shape, dtype), normal(rng, shape[-1:])
+        got = ops.rmsnorm(x, w)
+        want = ref.rmsnorm_ref(x, w)
+        torch.cuda.synchronize()
+        tol = MODEL_TOL[dtype]
+        errs[dtype] = max(errs[dtype], assert_close(
+            f"rmsnorm{shape} {dtype}", got, want, tol, tol))
+        n += 1
+    rng = np.random.default_rng(0)
+    rows, d = RMS_SHAPES[-1][0]
+    x, w = normal(rng, (rows, d), torch.bfloat16), normal(rng, (d,))
+    w_x = w.to(x.dtype)
+    recs["rmsnorm"] = {
+        "shape": [rows, d], "dtype": "bfloat16", "cases": n,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_f32": errs[torch.float32],
+        "max_abs_err_bf16": errs[torch.bfloat16],
+        "tolerance": "f32 rtol=atol=1e-5, bf16 rtol=atol=2e-2 vs rmsnorm_ref",
+        "ms": median_ms(lambda: ops.rmsnorm(x, w)),
+        "plain_ms": median_ms(lambda: ref.rmsnorm_ref(x, w), iters=20),
+        "library": "F.rms_norm with the weight cast to bf16 beforehand",
+        "library_ms": median_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), w_x, 1e-5)),
+        **bound_of(*rms_bound(rows, d, 2))}
+    emit("model_kernels", **recs,
+         timing="CUDA events, 5 warm-up + 50 launches (plain: 20, ssd "
+                "plain: 3), median of 5 repeats, inputs L2-warm")
+    return recs
+
+
+# --------------------------------------------------------------------------- #
 # phase 4: the main path
 # --------------------------------------------------------------------------- #
 def fingerprint(res):
@@ -442,6 +653,206 @@ def phase_allocate_cluster(args):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: the serving path of the model zoo
+# --------------------------------------------------------------------------- #
+# Float32 parity of a kernel lowering with impl="xla", relative to the
+# largest |logit| (and of every cache tensor to its own scale).
+PARITY_TOL = 1e-4
+CONTRACT_TOL = 2e-3          # prefill + decode == forward, tests/test_models
+# The reference's initialisation (fan-in of wq [D, H, hd] taken as H = 14)
+# gives qwen2 attention scores of standard deviation ~60: the softmax is an
+# argmax, and 24 such layers turn float32 rounding into O(1) changes of the
+# logits.  check_parity shows it with no kernel involved: impl="xla" in
+# float32 against the same eager path in float64 (whose scores, softmax,
+# norms and RoPE the reference's code still rounds to float32), on the
+# untempered weights and on the tempered ones (ROADMAP Queue C P3).  The
+# served weights therefore scale wq and wk by 1/8 after init, which brings
+# the scores to O(1), as in a trained model.
+QK_TEMPER = 0.125
+
+
+def temper(params, cfg) -> None:
+    """Scale the q / k projections of a dense model in place (see
+    QK_TEMPER); an SSM model has none and is left as it is."""
+    if cfg.family != "dense":
+        return
+    for lp in params["layers"]:
+        for key in ("wq", "wk"):
+            lp["attn"][key].mul_(QK_TEMPER)
+
+
+def seeded(seed: int) -> torch.Generator:
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def prompts(seed: int, B: int, S: int, vocab: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (B, S))).to(DEV)
+
+
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def greedy(model, params, tokens, steps: int, vocab: int):
+    """prefill -> pad_cache -> ``steps`` greedy decode steps.  Returns the
+    generated tokens [B, steps], the prefill seconds, the mean decode
+    seconds per step, and whether every logit was finite."""
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    cache = model.pad_cache(cache, S + steps)
+    out = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        nxt = logits[:, -1, :vocab].argmax(-1, keepdim=True)
+        out.append(nxt)
+        logits, cache = model.decode_step(params, cache,
+                                          {"tokens": nxt, "pos": S + i})
+        finite = finite & torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / steps
+    return torch.cat(out, dim=1).cpu(), t_prefill, t_decode, bool(finite)
+
+
+def check_parity(name, impl, cfg, seed):
+    """Float32, same parameters: the kernel lowering's last-position
+    prefill logits against impl="xla" (at S = 512 and the ragged 300), and
+    prefill + decode == forward for the kernel lowering."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    mk = build_model(cfg32, impl=impl)
+    mx = build_model(cfg32, impl="xla")
+    params = mk.init(seeded(seed))
+    rec = {}
+    if cfg.family == "dense":
+        # reported, not asserted: how far rounding alone moves this model
+        tok = {"tokens": prompts(seed + SERVE_S, SERVE_B, SERVE_S,
+                                 cfg.vocab_size)}
+        m64 = build_model(dataclasses.replace(
+            cfg, param_dtype="float64", compute_dtype="float64"), impl="xla")
+        p64 = tree_map(torch.Tensor.double, params)      # the same values
+        lx = mx.prefill(params, tok)[0]
+        rec["untempered_logits_rel_err"] = max_rel(mk.prefill(params, tok)[0],
+                                                   lx)
+        rec["untempered_xla_f32_vs_f64_rel_err"] = max_rel(
+            lx, m64.prefill(p64, tok)[0])
+        temper(params, cfg)
+        temper(p64, cfg)
+        rec["tempered_xla_f32_vs_f64_rel_err"] = max_rel(
+            mx.prefill(params, tok)[0], m64.prefill(p64, tok)[0])
+        del m64, p64, lx
+    for S in (SERVE_S, RAGGED_S):
+        tok = prompts(seed + S, SERVE_B, S, cfg.vocab_size)
+        lk, ck = mk.prefill(params, {"tokens": tok})
+        lx, cx = mx.prefill(params, {"tokens": tok})
+        rel = max_rel(lk, lx)
+        cache_rel = max(max_rel(a, b) for a, b in zip(tree_leaves(ck),
+                                                      tree_leaves(cx)))
+        if not rel <= PARITY_TOL or not cache_rel <= PARITY_TOL:
+            raise AssertionError(
+                f"{name} impl={impl} S={S}: prefill logits differ from "
+                f"impl='xla' by {rel:.3e} (caches {cache_rel:.3e}) of their "
+                f"scale > {PARITY_TOL}")
+        rec[f"S{S}"] = {"logits_rel_err": rel, "cache_rel_err": cache_rel,
+                        "logit_scale": float(lx.float().abs().max())}
+    tok = prompts(seed, SERVE_B, SERVE_S, cfg.vocab_size)
+    full = mk.forward(params, {"tokens": tok})
+    lp, cache = mk.prefill(params, {"tokens": tok[:, :-1]})
+    cache = mk.pad_cache(cache, SERVE_S + 4)
+    ld, _ = mk.decode_step(params, cache, {"tokens": tok[:, -1:],
+                                           "pos": SERVE_S - 1})
+    errs = []
+    for got, want in ((lp[:, 0], full[:, -2]), (ld[:, 0], full[:, -1])):
+        diff = (got - want).abs()
+        if not bool((diff <= CONTRACT_TOL * (1 + want.abs())).all()):
+            raise AssertionError(
+                f"{name} impl={impl}: prefill + decode != forward (max abs "
+                f"{float(diff.max()):.3e} > {CONTRACT_TOL} rtol/atol)")
+        errs.append(float(diff.max()))
+    rec["prefill_decode_vs_forward_max_abs"] = max(errs)
+    rec["tolerance"] = (f"logits and caches within {PARITY_TOL} of their "
+                        f"scale; contract rtol=atol={CONTRACT_TOL}")
+    return rec
+
+
+def phase_serve():
+    out = {}
+    for name, impl, kernel in SERVE:
+        cfg = get_config(name)
+        L = cfg.num_layers
+        parity = check_parity(name, impl, cfg, SEED)
+        torch.cuda.empty_cache()
+
+        # the config's own bf16: B = 4 requests of 512 tokens, 32 greedy steps
+        torch.cuda.reset_peak_memory_stats()
+        mk = build_model(cfg, impl=impl)
+        mx = build_model(cfg, impl="xla")
+        params = mk.init(seeded(SEED))
+        temper(params, cfg)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params))
+        tok = prompts(SEED, SERVE_B, SERVE_S, cfg.vocab_size)
+        mk.prefill(params, {"tokens": tok})          # warm-up, not counted
+
+        ops.reset_launch_counts()
+        gen_k, t_pre, t_dec, finite = greedy(mk, params, tok, SERVE_STEPS,
+                                             cfg.vocab_size)
+        counts = ops.launch_counts()
+        if counts[kernel] != L:
+            raise AssertionError(
+                f"{name}: {counts[kernel]} {kernel} launches in one prefill, "
+                f"expected one per layer ({L})")
+        if any(c for k, c in counts.items() if k != kernel):
+            raise AssertionError(f"{name}: other kernels launched: {counts}")
+        if not finite:
+            raise AssertionError(f"{name}: non-finite logits while serving")
+        if not bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name}: a generated token is outside the "
+                                 "vocabulary")
+        gen_x, tx_pre, tx_dec, _ = greedy(mx, params, tok, SERVE_STEPS,
+                                          cfg.vocab_size)
+
+        ops.reset_launch_counts()
+        rag = prompts(SEED + 1, SERVE_B, RAGGED_S, cfg.vocab_size)
+        lk, _ = mk.prefill(params, {"tokens": rag})
+        lx, _ = mx.prefill(params, {"tokens": rag})
+        if ops.launch_counts()[kernel] != L:
+            raise AssertionError(f"{name}: ragged prefill missed the kernel")
+        rec = {
+            "model": name, "impl": impl, "kernel": kernel, "num_layers": L,
+            "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+            "param_count": mk.param_count(), "param_bytes": param_bytes,
+            "batch": SERVE_B, "prompt": SERVE_S, "decode_steps": SERVE_STEPS,
+            "launches": counts[kernel], "f32_parity": parity,
+            "prefill_ms": t_pre * 1e3,
+            "prefill_tokens_per_s": SERVE_B * SERVE_S / t_pre,
+            "decode_ms_per_step": t_dec * 1e3,
+            "decode_tokens_per_s": SERVE_B / t_dec,
+            "xla": {"prefill_ms": tx_pre * 1e3,
+                    "decode_ms_per_step": tx_dec * 1e3},
+            "greedy_top1_agreement_with_xla": float(
+                (gen_k == gen_x).double().mean()),
+            "first_divergence_step": int(
+                (gen_k != gen_x).any(0).nonzero()[0]) if bool(
+                    (gen_k != gen_x).any()) else None,
+            "ragged_bf16_logits_rel_err_vs_xla": max_rel(lk, lx),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        }
+        emit("serve", **rec)
+        out[kernel] = rec
+        del mk, mx, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nodes", type=int, default=480,
@@ -456,6 +867,10 @@ def main() -> None:
                    help="node rows of the fleet-wide allocator solve")
     args = p.parse_args()
 
+    # float32 products in full float32 everywhere (the defaults for matmul,
+    # not for cuDNN): the parity checks compare float32 lowerings at 1e-4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -469,26 +884,44 @@ def main() -> None:
          build_dir=os.path.relpath(_build.BUILD_DIR, HERE))
 
     event, alloc = phase_kernels(args)
+    model_kernels = phase_model_kernels()
     event_launches = phase_run_batch(args)
     alloc_launches = phase_allocate_cluster(args)
+    served = phase_serve()
 
-    def row(name, rec, launches, replaces, tolerance):
+    def row(name, rec, launches, replaces, tolerance, path):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": None,
-                "shape": rec["shape"], "tolerance": tolerance}
+                "bound_by": rec["bound_by"],
+                "library_ms": rec.get("library_ms"), "shape": rec["shape"],
+                "tolerance": tolerance, "path": path}
 
+    mk = model_kernels
     print(json.dumps({"kernels": [
         row("event_step", event, event_launches,
             "src/repro/kernels/event_step.py:34",
-            "bit-for-bit (torch.equal on all five outputs)"),
+            "bit-for-bit (torch.equal on all five outputs)",
+            "Simulator.run_batch, one launch per tick"),
         row("alloc_active_set", alloc, alloc_launches,
             "src/repro/kernels/alloc_active_set.py:31",
             "rtol=1e-4, atol=capacity*1e-5 (f32 sums in another order; "
-            "capacity up to 2e14), feasible equal"),
+            "capacity up to 2e14), feasible equal",
+            "allocate_cluster(use_kernel=True), GPU and CPU problem"),
+        row("flash_attention", mk["flash_attention"],
+            served["flash_attention"]["launches"],
+            "src/repro/kernels/flash_attention.py:29",
+            mk["flash_attention"]["tolerance"],
+            "qwen2-0.5b impl='flash' prefill, one launch per layer"),
+        row("ssd_scan", mk["ssd_scan"], served["ssd_scan"]["launches"],
+            "src/repro/kernels/ssd_scan.py:25", mk["ssd_scan"]["tolerance"],
+            "mamba2-130m impl='pallas' prefill, one launch per layer"),
+        row("rmsnorm", mk["rmsnorm"], 0, "src/repro/kernels/rmsnorm.py:20",
+            mk["rmsnorm"]["tolerance"],
+            "none: no model of either package calls it (library entry "
+            "point ops.rmsnorm), so 0 launches on a model path"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

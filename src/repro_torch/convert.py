@@ -1,19 +1,30 @@
 """State carried across packages: plain data in, this package's objects out.
 
-There are no weights in this system.  What two implementations must agree
-on is the scenario, the workload and the ``[B, S]`` block state of a tick.
+What two implementations must agree on is the scenario, the workload, the
+``[B, S]`` block state of a tick and, for the served models, the weights.
 Everything here takes plain tuples / dicts / numpy arrays (what
-``dataclasses.asdict`` and enum ``.value`` give), so it can rebuild state
-recorded by any other implementation without ever seeing its types.
+``dataclasses.asdict``, enum ``.value`` and ``np.asarray`` give), so it can
+rebuild state recorded by any other implementation without ever seeing its
+types.
+
+Model weights (:func:`params_from_numpy`): the reference keeps a model's
+parameters as a tree of arrays in which every per-layer weight is stacked on
+a leading layer axis, ``layers/<name>`` of shape ``[L, ...]``.  The port keeps
+``params["layers"]`` as a list of L per-layer dicts, so ``layers/<name>[l]``
+becomes ``params["layers"][l][<name>]`` (at any depth of nesting, e.g.
+``layers/attn/wq[l]`` -> ``params["layers"][l]["attn"]["wq"]``).  Every other
+leaf (``embed``, ``final_norm``, ``lm_head``) keeps its name and shape.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Mapping
+from typing import Any, Dict, Iterable, List, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import split_layers, tree_map
 from repro_torch.sim.types import (InstanceCategory, InstanceSpec, NodeSpec,
                                    Request, RequestClass)
 from repro_torch.sim.workload import ServiceWorkModel
@@ -70,3 +81,29 @@ def scenario_from_plain(plain: Mapping) -> Dict:
             for m in models]
         for kind, models in plain["work_models"].items()}
     return sc
+
+
+def _array_to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: 2-byte view
+        return torch.from_numpy(
+            np.array(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))     # a writable copy
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
+                      device="cpu") -> Dict[str, Any]:
+    """The reference's parameter tree as numpy arrays (``jax.tree.map(
+    np.asarray, params)``) -> the port's parameters on ``device``, in
+    ``cfg.param_dtype``, with the stacked ``layers`` split per layer (see the
+    module docstring).  Only the families the port serves (``dense``,
+    ``ssm``) have this layout."""
+    if cfg.family not in ("dense", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    dtype = getattr(torch, cfg.param_dtype)
+    params = tree_map(
+        lambda a: _array_to_torch(a).to(device=device, dtype=dtype),
+        dict(tree))
+    params["layers"] = split_layers(params["layers"])
+    return params

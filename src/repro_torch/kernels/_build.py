@@ -18,23 +18,39 @@ import shutil
 import subprocess
 from typing import Dict, List
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch_kernels (this file is src/repro_torch/kernels/)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 
-KERNELS = ("event_step", "alloc_active_set")
+KERNELS = ("event_step", "alloc_active_set", "rmsnorm", "flash_attention",
+           "ssd_scan")
 
 # -fmad=false: event_step is held bit-for-bit to the numpy event core, which
 # rounds `alloc * tg` before subtracting; a fused multiply-add would not.
+# The flag applies to every source; the model kernels write their inner
+# products as explicit fmaf(), which the flag does not touch.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
+# element types of the model kernels (DTYPE_* in csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "event_step_launch": [_c_ptr] * 13 + [_c_int, _c_int, _c_ptr],
     "alloc_active_set_launch": [_c_ptr] * 8 + [_c_int, _c_int, _c_ptr],
+    # x, w, y, rows, d, eps, x_dtype, stream
+    "rmsnorm_launch": [_c_ptr] * 3 + [_c_int, _c_int, _c_float, _c_int,
+                                      _c_ptr],
+    # q, k, v, o, B, S, H, KV, D, scale, causal, dtype, stream
+    "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 5
+    + [_c_float, _c_int, _c_int, _c_ptr],
+    # x, dt, A, B, C, y, state, cs, b, S, h, g, p, n, chunk, dtype, stream
+    "ssd_scan_launch": [_c_ptr] * 8 + [_c_int] * 8 + [_c_ptr],
 }
 
 

@@ -1,0 +1,41 @@
+"""Causal grouped-query flash attention as a hand-written CUDA kernel.
+
+Twin of the reference's ``kernels/flash_attention.py`` (a Pallas TPU kernel,
+grid ``(B*H, q blocks, k blocks)``): one launch computes
+``softmax(q k^T / sqrt(d)) v`` for every head by blockwise online softmax,
+reading the ``[B, S, H, d]`` / ``[B, S, KV, d]`` layouts of the model zoo
+directly (no head transposes, no repeated KV heads).  The kernel is
+``csrc/flash_attention.cu``; this module is its launcher.  The plain version
+is :func:`repro_torch.kernels.ref.attention_ref`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+# head dims the kernel is instantiated for (csrc/flash_attention.cu)
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    """Launch the kernel on the current stream of ``q``'s device.
+
+    ``q`` ``[B, S, H, d]``, ``k, v`` ``[B, S, KV, d]``: contiguous, one dtype
+    (float32 or bfloat16), ``H % KV == 0``, ``d`` in :data:`HEAD_DIMS`, as
+    :func:`repro_torch.kernels.ops.flash_attention` checks.  Allocates the
+    output ``[B, S, H, d]`` in ``q``'s dtype, does not synchronise.
+    """
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _build.launch(
+            "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, S, H, KV, d, 1.0 / math.sqrt(d), int(causal),
+            _build.DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return out

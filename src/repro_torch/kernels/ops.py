@@ -8,17 +8,22 @@ kernels mask the ragged edge themselves, so nothing is padded here.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.alloc_active_set import MAX_S, alloc_active_set_cuda
 from repro_torch.kernels.event_step import event_step_cuda
+from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.ssd_scan import MAX_N, MAX_P, ssd_scan_cuda
 
 # kernel launches per wrapper since the last reset — incremented only where
 # a kernel is launched, never on the plain (CPU) path
-_launches: Dict[str, int] = {"event_step": 0, "alloc_active_set": 0}
+_launches: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -104,3 +109,113 @@ def alloc_active_set(psi: torch.Tensor, omega: torch.Tensor,
     out = alloc_active_set_cuda(psi32, omega32, floors32, cap32, mask_b)
     _launches["alloc_active_set"] += 1
     return out
+
+
+def _check_model_dtype(name: str, dtype: torch.dtype) -> None:
+    if dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
+                         f"got {dtype}")
+
+
+def _check_same(name: str, ref: torch.Tensor, **others: torch.Tensor) -> None:
+    for key, t in others.items():
+        if t.dtype != ref.dtype or t.device != ref.device:
+            raise ValueError(
+                f"{name}: {key} is {t.dtype} on {t.device}, expected "
+                f"{ref.dtype} on {ref.device} like the first input")
+
+
+# --------------------------------------------------------------------------- #
+# model kernels
+# --------------------------------------------------------------------------- #
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d] in q's dtype (blockwise
+    online softmax, float32 statistics).  Inputs are made contiguous; any
+    ``S`` is taken as it is (the kernel masks the tails)."""
+    if q.dim() != 4 or k.dim() != 4 or q.numel() == 0:
+        raise ValueError(f"flash_attention: expected non-empty q [B,S,H,d] "
+                         f"and k, v [B,S,KV,d], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    if tuple(k.shape) != (B, S, KV, d) or tuple(v.shape) != (B, S, KV, d) \
+            or H % KV:
+        raise ValueError(f"flash_attention: k, v must be [B,S,KV,d] with "
+                         f"H % KV == 0; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    _check_model_dtype("flash_attention", q.dtype)
+    _check_same("flash_attention", q, k=k, v=v)
+    if q.device.type == "cpu":
+        return kref.attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal).to(q.dtype)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal)
+    _launches["flash_attention"] += 1
+    return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b,s,h,p]; dt [b,s,h]; A [h]; B,C [b,s,g,n] -> (y [b,s,h,p],
+    state [b,h,p,n]), both in x's dtype (the state is carried in float32).
+
+    As in the reference wrapper: the B/C group of head ``h`` is ``h // (h //
+    g)`` (resolved here by index, never copied); ``chunk`` is halved until it
+    divides ``s``; an ``initial_state`` is not supported (decode uses the
+    O(1) recurrence instead).  All five inputs share one dtype.
+    """
+    if initial_state is not None:
+        raise NotImplementedError("initial_state handled by decode path")
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"ssd_scan: x must be a non-empty [b,s,h,p], got "
+                         f"{tuple(x.shape)}")
+    b, s, h, p = x.shape
+    if B.dim() != 4 or tuple(B.shape[:2]) != (b, s) \
+            or tuple(C.shape) != tuple(B.shape):
+        raise ValueError(f"ssd_scan: B, C must be [b,s,g,n]; got "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    g, n = B.shape[2], B.shape[3]
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) or h % g:
+        raise ValueError(f"ssd_scan: expected dt [b,s,h], A [h], h % g == 0;"
+                         f" got dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+                         f"g={g}")
+    if p > MAX_P or n > MAX_N:
+        raise ValueError(f"ssd_scan: head_dim {p} / d_state {n} above the "
+                         f"kernel's {MAX_P} / {MAX_N}")
+    _check_model_dtype("ssd_scan", x.dtype)
+    _check_same("ssd_scan", x, dt=dt, A=A, B=B, C=C)
+    while s % chunk:
+        chunk //= 2
+    if x.device.type == "cpu":
+        return kref.ssd_scan_sequential_ref(x, dt, A, B, C)
+    y, state = ssd_scan_cuda(x.contiguous(), dt.contiguous(), A.contiguous(),
+                             B.contiguous(), C.contiguous(), chunk)
+    _launches["ssd_scan"] += 1
+    return y, state.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x [..., d]; weight [d] -> x's shape and dtype (float32 statistics).
+    ``x`` and ``weight`` may each be float32 or bfloat16; the kernel reads
+    the weight as float32."""
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"rmsnorm: x must be non-empty [..., d], got "
+                         f"{tuple(x.shape)}")
+    d = x.shape[-1]
+    if tuple(weight.shape) != (d,) or weight.device != x.device:
+        raise ValueError(f"rmsnorm: weight must be [{d}] on {x.device}, got "
+                         f"{tuple(weight.shape)} on {weight.device}")
+    _check_model_dtype("rmsnorm", x.dtype)
+    _check_model_dtype("rmsnorm weight", weight.dtype)
+    if x.device.type == "cpu":
+        return kref.rmsnorm_ref(x, weight, eps)
+    out = rmsnorm_cuda(x.contiguous().reshape(-1, d),
+                       weight.float().contiguous(), eps)
+    _launches["rmsnorm"] += 1
+    return out.reshape(x.shape)

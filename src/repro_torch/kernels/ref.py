@@ -1,11 +1,13 @@
 """Plain torch versions of the hand-written kernels (and of the solo pair).
 
 These are the expressions of the reference's ``kernels/event_core.py``
-(``next_completion``, ``advance``, ``event_step``) and of
-``core/allocator.solve_resource`` vectorised over rows, written as eager
-tensor code.  They run on whatever device their inputs lie on; the CPU tests
-and the eager ``"torch"`` engine use them, and the CUDA kernels are held
-against them on the card.
+(``next_completion``, ``advance``, ``event_step``), of
+``core/allocator.solve_resource`` vectorised over rows, and of the
+reference's model-kernel oracles in ``kernels/ref.py`` (``attention_ref``,
+``ssd_scan_sequential_ref``, ``rmsnorm_ref``), written as eager tensor code.
+They run on whatever device their inputs lie on; the CPU tests and the eager
+``"torch"`` engine use them, and the CUDA kernels are held against them on
+the card.
 
 The event functions are float64 by contract: the event schedule is a chain
 of IEEE-754 double divisions, and float32 desyncs the engines within a
@@ -15,7 +17,8 @@ handful of events.  Every product is rounded before it is subtracted
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -161,3 +164,60 @@ def alloc_active_set_rounds(psi: torch.Tensor, omega: torch.Tensor,
     """Fixed-point rounds each row of this data needs (``[N]`` int64) —
     the data-dependent part of the solve's operation count."""
     return _active_set(psi, omega, floors, capacity, mask)[3]
+
+
+# --------------------------------------------------------------------------- #
+# model kernels: the reference's oracles (src/repro/kernels/ref.py)
+# --------------------------------------------------------------------------- #
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d].  fp32 softmax; grouped
+    heads by reshape, never by repeating k / v."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(d)
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        mask = pos[:, None] >= pos[None, :]
+        scores = scores.masked_fill(~mask, -torch.inf)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, S, H, d)
+
+
+def ssd_scan_sequential_ref(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                            initial_state: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b,s,h,p]; dt [b,s,h]; A [h]; B,C [b,s,g,n] -> (y, final_state).
+
+    h_t = h_{t-1} * exp(dt_t A) + dt_t * x_t (x) B_t ;  y_t = h_t . C_t —
+    sequential over s, in float32; ``y`` and the state come back in ``x``'s
+    dtype.  The oracle for the chunked forms (a different algorithm).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Bh = B.repeat_interleave(rep, dim=2).float()            # [b,s,h,n]
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af[None, :])            # [b,h]
+        state = state * decay[:, :, None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t], Bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return y, state.to(x.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x [..., d]; weight [d] — fp32 statistics, cast back to x.dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)

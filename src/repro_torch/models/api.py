@@ -1,0 +1,214 @@
+"""Unified model API over the ported families.
+
+Twin of the reference's ``models/api.py``.  ``Model`` exposes:
+
+  param_defs() / param_count() / init(gen)    — declarative params
+  forward(params, batch)                      — full-sequence logits
+  prefill(params, batch)                      — prompt -> (logits, cache)
+  decode_step(params, cache, batch)           — one token -> (logits, cache)
+  cache_defs(batch, seq) / init_cache / pad_cache
+
+The serving path is ``build_model -> init -> prefill -> pad_cache ->
+decode_step``.  ``impl`` keeps the reference's strings: ``"xla"`` is the
+eager torch composite path, ``"flash"`` sends causal self-attention to the
+hand-written ``flash_attention`` kernel and ``"pallas"`` sends the SSD scan
+to the hand-written ``ssd_scan`` kernel.  Families ``dense`` and ``ssm`` are
+ported; the others, ``loss`` and the training path are not yet (ROADMAP
+Queue A items 7 and 8) and raise.
+
+Entry points run on the GPU unless the caller asks for the CPU:
+``build_model(..., device=None)`` means ``"cuda"`` and raises
+``RuntimeError`` when no CUDA device is present.  Parameters are a dict with
+``layers`` a list of per-layer dicts; caches keep the reference's stacked
+layout (``[L, B, S, KV, hd]``; for SSM ``{"ssm": [L,B,H,P,N], "conv":
+[L,B,K-1,C]}``).  ``decode_step`` updates the cache in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm, transformer
+from repro_torch.models.common import (ParamDef, init_params,
+                                       param_count_tree, rms_norm,
+                                       scan_layers, split_layers, stack_defs,
+                                       tree_map)
+
+Tree = Any
+
+FAMILIES = ("dense", "ssm")
+IMPLS = ("xla", "flash", "pallas")
+
+
+# --------------------------------------------------------------------------- #
+# pure-SSM LM (mamba2)
+# --------------------------------------------------------------------------- #
+def _ssm_lm_defs(cfg: ArchConfig) -> Dict[str, Tree]:
+    V, D = cfg.padded_vocab, cfg.d_model
+    defs = {
+        "embed": ParamDef((V, D), ("vocab", "d_model"), init="small_normal"),
+        "final_norm": ParamDef((D,), ("d_model",), init="ones"),
+        "layers": stack_defs(ssm.ssm_defs(cfg), cfg.num_layers),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((D, V), ("d_model", "vocab"))
+    return defs
+
+
+def _ssm_lm_logits(params, h, cfg):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", h, w)
+
+
+def _ssm_embed(params, tokens, cfg):
+    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+
+
+def _ssm_lm_forward(params, batch, cfg, impl="xla"):
+    h = _ssm_embed(params, batch["tokens"], cfg)
+    for lp in params["layers"]:
+        h = h + ssm.ssm_forward(lp, h, cfg, impl=impl)
+    return _ssm_lm_logits(params, h, cfg)
+
+
+def _ssm_lm_prefill(params, batch, cfg, impl="xla"):
+    h = _ssm_embed(params, batch["tokens"], cfg)
+
+    def body(carry, lp):
+        out, state = ssm.ssm_forward(lp, carry, cfg, return_state=True,
+                                     impl=impl)
+        return carry + out, state
+    h, states = scan_layers(body, h, params["layers"])
+    return _ssm_lm_logits(params, h[:, -1:, :], cfg), {"layers": states}
+
+
+def _ssm_lm_decode(params, cache, batch, cfg):
+    h = _ssm_embed(params, batch["tokens"], cfg)
+    for lp, lc in zip(params["layers"], split_layers(cache["layers"])):
+        out, _ = ssm.ssm_decode(lp, h, lc, cfg)
+        h = h + out
+    return _ssm_lm_logits(params, h, cfg), cache
+
+
+def _ssm_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
+    s = cfg.ssm
+    D = cfg.d_model
+    H, P, N = s.n_heads(D), s.head_dim, s.d_state
+    conv_dim = s.d_inner(D) + 2 * s.n_groups * s.d_state
+    per_layer = {
+        "ssm": ParamDef((batch, H, P, N), ("batch", "ssm_heads", None, None),
+                        init="zeros"),
+        "conv": ParamDef((batch, s.d_conv - 1, conv_dim),
+                         ("batch", None, "d_inner"), init="zeros"),
+    }
+    return {"layers": stack_defs(per_layer, cfg.num_layers)}
+
+
+# --------------------------------------------------------------------------- #
+# unified wrapper
+# --------------------------------------------------------------------------- #
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA; a CUDA device that is not there raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch models run on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain torch path")
+    return dev
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    impl: str = "xla"      # attention / SSD lowering: "xla" | "flash" | "pallas"
+    device: Optional[Union[str, torch.device]] = None
+
+    def __post_init__(self):
+        if self.cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.name}: family {self.cfg.family!r} is "
+                f"{transformer.NOT_PORTED}; ported: {FAMILIES}")
+        if self.cfg.family == "dense":
+            transformer.check_dense(self.cfg)
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
+        self.device = resolve_device(self.device)
+
+    @property
+    def _ssm(self) -> bool:
+        return self.cfg.family == "ssm"
+
+    # ---- params ---- #
+    def param_defs(self) -> Tree:
+        return _ssm_lm_defs(self.cfg) if self._ssm \
+            else transformer.lm_defs(self.cfg)
+
+    def init(self, gen: Union[torch.Generator, int]) -> Tree:
+        """Parameters on the model's device from ``gen`` (a generator on that
+        device, or an int seed for one); ``layers`` split per layer."""
+        if isinstance(gen, int):
+            gen = torch.Generator(device=self.device).manual_seed(gen)
+        params = init_params(self.param_defs(), gen,
+                             getattr(torch, self.cfg.param_dtype), self.device)
+        params["layers"] = split_layers(params["layers"])
+        return params
+
+    def param_count(self) -> int:
+        return param_count_tree(self.param_defs())
+
+    # ---- compute ---- #
+    def forward(self, params: Tree, batch: Dict) -> torch.Tensor:
+        if self._ssm:
+            return _ssm_lm_forward(params, batch, self.cfg, self.impl)
+        return transformer.lm_forward(params, batch, self.cfg,
+                                      impl=self.impl)
+
+    def prefill(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
+        if self._ssm:
+            return _ssm_lm_prefill(params, batch, self.cfg, self.impl)
+        return transformer.lm_prefill(params, batch, self.cfg, impl=self.impl)
+
+    def decode_step(self, params: Tree, cache: Tree, batch: Dict
+                    ) -> Tuple[torch.Tensor, Tree]:
+        if self._ssm:
+            return _ssm_lm_decode(params, cache, batch, self.cfg)
+        return transformer.lm_decode_step(params, cache, batch, self.cfg)
+
+    # ---- caches ---- #
+    def cache_defs(self, batch: int, seq: int) -> Tree:
+        if self._ssm:
+            return _ssm_cache_defs(self.cfg, batch, seq)
+        return transformer.lm_cache_defs(self.cfg, batch, seq)
+
+    def init_cache(self, batch: int, seq: int) -> Tree:
+        return tree_map(
+            lambda d: torch.zeros(d.shape, device=self.device,
+                                  dtype=getattr(torch, self.cfg.compute_dtype)),
+            self.cache_defs(batch, seq))
+
+    def pad_cache(self, cache: Tree, max_len: int) -> Tree:
+        """Pad prefill KV tables along the sequence axis (axis 2 of the
+        stacked ``[L, B, S, ...]`` layout) to ``max_len``.  Recurrent (SSM /
+        conv) states are fixed-size and pass through untouched."""
+        if self._ssm:
+            return cache
+
+        def one(x):
+            pad = max_len - x.shape[2]
+            if pad <= 0:
+                return x
+            out = x.new_zeros(x.shape[:2] + (max_len,) + x.shape[3:])
+            out[:, :, :x.shape[2]] = x
+            return out
+        return tree_map(one, cache)
+
+
+def build_model(name_or_cfg, impl: str = "xla", device=None) -> Model:
+    cfg = name_or_cfg if isinstance(name_or_cfg, ArchConfig) else \
+        get_config(name_or_cfg)
+    return Model(cfg, impl=impl, device=device)

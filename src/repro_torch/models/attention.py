@@ -1,0 +1,164 @@
+"""Attention: GQA (grouped-query), full-sequence and decode.
+
+Twin of the GQA part of the reference's ``models/attention.py``.  Lowerings:
+
+  * full sequence (prefill / forward) — ``impl="xla"``: grouped einsum with
+    an optional q-chunked block-causal loop for long sequences (exact-causal
+    at block granularity); ``impl="flash"``: the hand-written
+    ``flash_attention`` kernel, for causal self-attention;
+  * decode — one query position against a cache.
+
+MLA and ``gqa_cross_decode`` are not ported yet (ROADMAP Queue A item 7).
+Decode writes the new key / value row into the cache tensors in place and
+returns them, where the reference returns updated copies: the port saves
+copying the whole cache on every generated token.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import ParamDef, apply_rope
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------- #
+# core scaled-dot-product attention (grouped, no kv repeat materialization)
+# --------------------------------------------------------------------------- #
+def _sdpa_block(q, k, v, *, scale, causal, q_pos, k_pos):
+    """q [B,Sq,KV,G,hd]; k/v [B,Sk,KV,hd]; positions for masking."""
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]                 # [Sq, Sk]
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, q_offset: int = 0,
+         chunk_q: Optional[int] = None) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd].
+
+    When ``chunk_q`` is set and the sequence is causal and aligned, runs a
+    loop over query blocks where block i only reads keys
+    ``[0 : (i+1)*chunk_q]`` — block-exact causal FLOPs.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    hd_v = v.shape[-1]
+    assert H % KV == 0, (H, KV)
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, G, hd)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+
+    use_chunks = (chunk_q is not None and causal and q_offset == 0
+                  and Sq == Sk and Sq % chunk_q == 0 and Sq // chunk_q > 1)
+    if not use_chunks:
+        out = _sdpa_block(qg, k, v, scale=scale, causal=causal,
+                          q_pos=q_pos, k_pos=k_pos)
+        return out.reshape(B, Sq, H, hd_v)
+
+    outs = []
+    for i in range(Sq // chunk_q):
+        lo, hi = i * chunk_q, (i + 1) * chunk_q
+        outs.append(_sdpa_block(
+            qg[:, lo:hi], k[:, :hi], v[:, :hi], scale=scale, causal=True,
+            q_pos=q_pos[lo:hi], k_pos=k_pos[:hi]))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd_v)
+
+
+def sdpa_decode(q, k_cache, v_cache, *, pos: int, scale=None):
+    """q [B,1,H,hd]; caches [B,S,KV,hd]; pos: last valid index."""
+    B, _, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    scale = scale or 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    valid = torch.arange(S, device=q.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
+    return out.reshape(B, 1, H, hd)
+
+
+# --------------------------------------------------------------------------- #
+# GQA block
+# --------------------------------------------------------------------------- #
+def gqa_defs(cfg: ArchConfig, num_heads=None,
+             num_kv=None) -> Dict[str, ParamDef]:
+    """Projections keep the head dim explicit ([D, H, hd]), as the
+    reference does."""
+    D = cfg.d_model
+    H = num_heads or cfg.num_heads
+    KV = num_kv or cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    defs = {
+        "wq": ParamDef((D, H, hd), ("d_model", "heads", None)),
+        "wk": ParamDef((D, KV, hd), ("d_model", "kv_heads", None)),
+        "wv": ParamDef((D, KV, hd), ("d_model", "kv_heads", None)),
+        "wo": ParamDef((H, hd, D), ("heads", None, "d_model")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H, hd), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((KV, hd), ("kv_heads", None), init="zeros")
+        defs["bv"] = ParamDef((KV, hd), ("kv_heads", None), init="zeros")
+    return defs
+
+
+def _project_qkv(p, x, kv_x, cfg):
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = torch.einsum("bsd,dhe->bshe", kv_x, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", kv_x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def gqa_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                positions: Optional[torch.Tensor] = None,
+                kv_x: Optional[torch.Tensor] = None,
+                causal: bool = True,
+                use_rope: bool = True,
+                impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence attention.  Returns (output, kv cache contents)."""
+    q, k, v = _project_qkv(p, x, x if kv_x is None else kv_x, cfg)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    S = x.shape[1]
+    chunk = cfg.attn_chunk_q if (S >= cfg.attn_chunk_threshold
+                                 and causal) else None
+    if impl == "flash" and causal and kv_x is None:
+        out = kops.flash_attention(q, k, v, causal=True)
+    else:
+        out = sdpa(q, k, v, causal=causal, chunk_q=chunk)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return y, {"k": k, "v": v}
+
+
+def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
+               cfg: ArchConfig, *, use_rope: bool = True
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x [B,1,D]; cache {"k","v"} [B,S,KV,hd], written at
+    row ``pos`` in place."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    if use_rope:
+        posb = torch.full((x.shape[0], 1), pos, device=x.device)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    out = sdpa_decode(q, cache["k"], cache["v"], pos=pos)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return y, cache

@@ -1,0 +1,161 @@
+"""Shared model machinery: parameter definitions, norms, RoPE, SwiGLU.
+
+Twin of the reference's ``models/common.py``.  Parameters are described by
+trees (nested dicts) of :class:`ParamDef`, so one definition gives both the
+parameter count and real tensors.  :func:`init_params` makes the tensors on
+an explicit device from an explicit ``torch.Generator``, with the
+reference's distributions (the values differ: the two frameworks' generators
+do).
+
+Differences from the reference, all forced by running eagerly on one device:
+
+- layer parameters are defined stacked (``[L, ...]``, :func:`stack_defs`,
+  so counts and initial scales match the reference) and then held as a list
+  of per-layer dicts (:func:`split_layers`);
+- ``scan_layers`` is a Python loop over that list;
+- ``shard_batch`` has no counterpart: it is a sharding constraint that is a
+  no-op without a device mesh, and the port runs on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative parameter: shape + logical axes + init scheme."""
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis name per dim (or None)
+    init: str = "normal"              # normal | zeros | ones | small_normal
+    scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn: Callable, tree: Tree) -> Tree:
+    """Apply ``fn`` to every leaf of a tree of dicts / lists / tuples (dict
+    keys in sorted order, as jax's tree utilities walk them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree: Tree) -> List:
+    out: List = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _init_tensor(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
+    std = d.scale / math.sqrt(fan_in)
+    if d.init == "small_normal":
+        std = 0.02 * d.scale
+    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (x * std).to(dtype)
+
+
+def init_params(defs: Tree, gen: torch.Generator, dtype: torch.dtype,
+                device) -> Tree:
+    """Real tensors for a ParamDef tree, drawn in sorted-key order from
+    ``gen`` (a generator on ``device``)."""
+    device = torch.device(device)
+    return tree_map(lambda d: _init_tensor(d, gen, dtype, device), defs)
+
+
+def param_count_tree(defs: Tree) -> int:
+    return int(sum(math.prod(d.shape) for d in tree_leaves(defs)))
+
+
+def stack_defs(defs: Tree, n: int, axis_name: str = "layers") -> Tree:
+    """Prepend a stacking dim to every ParamDef (the reference's layout)."""
+    return tree_map(lambda d: ParamDef((n,) + d.shape, (axis_name,) + d.axes,
+                                       init=d.init, scale=d.scale), defs)
+
+
+def split_layers(stacked: Tree) -> List[Tree]:
+    """A tree of ``[L, ...]`` tensors -> a list of L per-layer trees (views
+    of the stacked tensors, nothing is copied)."""
+    n = tree_leaves(stacked)[0].shape[0]
+    return [tree_map(lambda x, i=i: x[i], stacked) for i in range(n)]
+
+
+def stack_trees(trees: Sequence[Tree]) -> Tree:
+    """A list of per-layer trees of tensors -> one tree of ``[L, ...]``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in sorted(first)}
+    return torch.stack(list(trees))
+
+
+def scan_layers(body: Callable, carry, xs: Sequence):
+    """``carry, y_l = body(carry, xs[l])`` for each layer in order.  Returns
+    ``(carry, ys)`` with the per-layer outputs stacked on a leading axis,
+    or ``None`` when ``body`` returns none."""
+    ys = []
+    for x in xs:
+        carry, y = body(carry, x)
+        ys.append(y)
+    if not ys or ys[0] is None:
+        return carry, None
+    return carry, stack_trees(ys)
+
+
+# --------------------------------------------------------------------------- #
+# layers
+# --------------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    idx = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (idx / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)              # [hd/2]
+    angles = positions[..., :, None].float() * freqs            # [..., S, hd/2]
+    cos = torch.cos(angles)[..., :, None, :]                    # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = torch.einsum("...d,df->...f", x, w_gate)
+    u = torch.einsum("...d,df->...f", x, w_up)
+    return torch.einsum("...f,fd->...d", F.silu(g) * u, w_down)
+
+
+def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
+    return {
+        "gate": ParamDef((d_model, d_ff), ("d_model", "d_ff")),
+        "up": ParamDef((d_model, d_ff), ("d_model", "d_ff")),
+        "down": ParamDef((d_ff, d_model), ("d_ff", "d_model")),
+    }

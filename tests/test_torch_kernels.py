@@ -15,7 +15,8 @@ contracted form can leave a rounding residue ``rem_g > 0`` instead of the
 exact 0 numpy gets, and then holds the CPU stage back for that tick: such
 lanes are checked for exactly that (CPU residual untouched) and nothing
 looser.  Allocator: ``rtol=1e-4, atol=cap*1e-5`` (f32
-sums taken in another order).
+sums taken in another order).  Model kernels: the reference's own
+tolerances, stated at their section below.
 """
 import types
 
@@ -29,9 +30,12 @@ from repro.core.allocator_np import solve_resource_np
 from repro.kernels import event_core as ref_event_core
 from repro.kernels import event_step as ref_event_step
 from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_kref
+from repro.models.ssm import ssd_scan_ref as ref_model_ssd
 from repro.sim.event_core import NumpyBatchedEventCore
 from repro_torch import convert
 from repro_torch.kernels import ops, ref
+from repro_torch.models.ssm import ssd_scan_ref as port_model_ssd
 
 INF = float("inf")
 
@@ -232,7 +236,9 @@ def test_ops_event_step_on_cpu_is_the_plain_version_and_counts_nothing():
     want = ref.event_step_ref(*(t[k] for k in convert.STEP_INPUTS))
     for o, w in zip(out, want):
         assert torch.equal(o, w)
-    assert ops.launch_counts() == {"event_step": 0, "alloc_active_set": 0}
+    counts = ops.launch_counts()
+    assert {"event_step", "alloc_active_set"} <= set(counts)
+    assert set(counts.values()) == {0}
     back = convert.block_arrays_from_torch(
         dict(zip(convert.STEP_OUTPUTS, out)))
     assert back["sid"].dtype == np.int32 and back["started"].dtype == bool
@@ -265,3 +271,142 @@ def test_ops_alloc_active_set_on_cpu_casts_to_f32_and_limits_rows():
     wide = torch.zeros(1, 8193)
     with pytest.raises(ValueError, match="row limit"):
         ops.alloc_active_set(wide, wide, wide, torch.ones(1), wide > 0)
+
+
+# --------------------------------------------------------------------------- #
+# model kernels: plain versions against the reference's Pallas kernels
+# (interpret mode) and its oracles.  Tolerances are the reference's own
+# (tests/test_kernels.py): flash f32 1e-5 / bf16 2e-2 (rtol, atol 10x),
+# ssd 1e-4, rmsnorm f32 1e-5 / bf16 2e-2.
+# --------------------------------------------------------------------------- #
+
+
+def _normal(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
+                (1, 512, 2, 2, 128), (3, 64, 6, 3, 16)]
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("B,S,H,KV,d", FLASH_SHAPES)
+def test_flash_attention_plain_matches_reference_kernel(B, S, H, KV, d, dtype,
+                                                        causal):
+    rng = np.random.default_rng(B * 1000 + S + H)
+    q, k, v = (_normal(rng, (B, S, n, d)) for n in (H, KV, KV))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(ref_ops.flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), causal=causal), np.float32)
+    got = ops.flash_attention(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, H, d)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * 10)
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("B,S,H,KV,d", [(2, 300, 14, 2, 64), (1, 77, 4, 2, 32),
+                                        (2, 1, 2, 1, 16)])
+def test_flash_attention_plain_ragged_lengths_match_reference_oracle(
+        B, S, H, KV, d, causal):
+    """Prompt lengths that no power-of-two block divides (qwen2's head
+    layout at S = 300), against the reference's oracle in float32."""
+    rng = np.random.default_rng(S)
+    q, k, v = (_normal(rng, (B, S, n, d)) for n in (H, KV, KV))
+    want = np.asarray(ref_kref.attention_ref(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal))
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
+              (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
+              (1, 300, 4, 1, 64, 128, 300)]
+
+
+def _ssd_inputs(seed, b, s, h, g, p, n):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (b, s, h, p)),
+            rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.5, 1.5, h).astype(np.float32),
+            _normal(rng, (b, s, g, n)), _normal(rng, (b, s, g, n)))
+
+
+@pytest.mark.parametrize("port_form", ("sequential", "chunked"))
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_plain_forms_match_both_reference_forms(b, s, h, g, p, n,
+                                                         chunk, port_form):
+    """The port's sequential recurrence (``ops.ssd_scan`` on the CPU) and its
+    chunked model form against the reference's Pallas kernel (interpret)
+    and its sequential oracle, y and final state at 1e-4.  The last shape
+    is mamba2's head layout as one chunk of 300."""
+    arrays = _ssd_inputs(s + h, b, s, h, g, p, n)
+    tin = [torch.from_numpy(a) for a in arrays]
+    if port_form == "sequential":
+        y, st = ops.ssd_scan(*tin, chunk=chunk)
+    else:
+        y, st = port_model_ssd(*tin, chunk=min(chunk, s))
+    jin = [jnp.asarray(a) for a in arrays]
+    for form, (y_r, st_r) in (
+            ("pallas", ref_ops.ssd_scan(*jin, chunk=chunk)),
+            ("sequential", ref_kref.ssd_scan_sequential_ref(*jin))):
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=1e-4,
+                                   atol=1e-4, err_msg=form)
+        np.testing.assert_allclose(st.numpy(), np.asarray(st_r), rtol=1e-4,
+                                   atol=1e-4, err_msg=form)
+
+
+def test_ssd_model_form_matches_reference_model_form():
+    arrays = _ssd_inputs(9, 2, 128, 4, 1, 32, 64)
+    y, st = port_model_ssd(*(torch.from_numpy(a) for a in arrays), chunk=32)
+    y_r, st_r = ref_model_ssd(*(jnp.asarray(a) for a in arrays), chunk=32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_r), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", [(4, 64, 256), (128, 512), (3, 5, 7, 64)])
+def test_rmsnorm_plain_matches_reference_kernel_and_oracle(shape, dtype):
+    rng = np.random.default_rng(len(shape))
+    x, w = _normal(rng, shape), _normal(rng, shape[-1:])
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = ops.rmsnorm(torch.from_numpy(x).to(tdt), torch.from_numpy(w))
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in (ref_ops.rmsnorm(jnp.asarray(x, jdt), jnp.asarray(w)),
+                 ref_kref.rmsnorm_ref(jnp.asarray(x, jdt), jnp.asarray(w))):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+def test_model_kernel_wrappers_on_cpu_count_nothing_and_check_inputs():
+    ops.reset_launch_counts()
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    ops.flash_attention(q, kv, kv)
+    ops.rmsnorm(q, torch.ones(16))
+    x, dt, A, B, C = (torch.from_numpy(a)
+                      for a in _ssd_inputs(0, 1, 12, 2, 1, 8, 4))
+    y, st = ops.ssd_scan(x, dt, A, B, C, chunk=8)
+    assert y.dtype == st.dtype == torch.float32
+    assert set(ops.launch_counts().values()) == {0}
+    with pytest.raises(NotImplementedError, match="initial_state"):
+        ops.ssd_scan(x, dt, A, B, C, initial_state=st)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="H % KV"):
+        ops.flash_attention(torch.zeros(1, 8, 3, 16), kv, kv)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24),
+                            torch.zeros(1, 8, 2, 24))
+    with pytest.raises(ValueError, match="like the first input"):
+        ops.ssd_scan(x, dt.to(torch.bfloat16), A, B, C)
+    with pytest.raises(ValueError, match="weight"):
+        ops.rmsnorm(q, torch.ones(8))

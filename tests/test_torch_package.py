@@ -32,7 +32,10 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     names = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.sim.engine",
             "repro_torch.core.allocator", "repro_torch.convert",
-            "repro_torch.obs.profile"} <= set(names)
+            "repro_torch.obs.profile", "repro_torch.models.api",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan",
+            "repro_torch.kernels.rmsnorm"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -81,6 +84,10 @@ else:
     "Simulator(sc, engine='numpy').run_batch(wl, lambda b: StaticPlacement(),"
     " lambda b: DeadlineAwareAllocation(), engine='cuda')",
     "Simulator(sc, engine='cuda', device='cpu')",
+    "__import__('repro_torch.models.api', fromlist=['api'])"
+    ".build_model('qwen2-0.5b', impl='flash')",
+    "__import__('repro_torch.models.api', fromlist=['api'])"
+    ".build_model('mamba2-130m', impl='pallas', device='cuda')",
 ))
 def test_default_entry_points_need_cuda_and_say_so(call):
     """No silent CPU run: without a card the device engines raise."""
