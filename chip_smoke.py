@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Six phases, one JSON line each (phase 3 two); any failure ends the run with a
-non-zero exit code:
+Six phases, one JSON line each (phases 2 and 3 two); any failure ends the run
+with a non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
-  2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc
+  2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc,
+                       with each source's flags, registers, spills and shared
+                       memory as ptxas reports them, and the tensor-core and
+                       asynchronous-copy instructions in flash_attention's SASS
+                       (cuobjdump; the run fails if the bf16 kernel has none)
   3. kernels           each kernel against its plain torch version on the card
                        (event_step also bit-for-bit against the host numpy
                        core), with times: CUDA events, warm-up, >= 20 launches
@@ -27,10 +31,12 @@ non-zero exit code:
                        requests of 512 tokens served in the config's bf16
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
-versions and times them beside PyTorch's own call for the same function.
-Then a line {"kernels": [...]} (per kernel: route, source, the TPU kernel it
-replaces, launches on its path, error, time, plain-version time, roofline
-bound, library time), the card's name and power limit as nvidia-smi prints
+versions and times them beside PyTorch's own call for the same function
+(flash_attention in bf16, its tensor-core design, and in float32, its
+CUDA-core design).  Then a line {"kernels": [...]} (per kernel: route, source,
+the TPU kernel it replaces, launches on its path, error, time, plain-version
+time, roofline bound and the bound's share of the time, library time and the
+kernel's ratio to it), the card's name and power limit as nvidia-smi prints
 them, and the last line {"ok": true, "device": {...}}.
 
 With no options the fleet is full size (S = 1440, B = 32) and each replica's
@@ -46,6 +52,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +113,111 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: what the compiler made of each kernel
+# --------------------------------------------------------------------------- #
+# SASS opcodes counted in flash_attention's library: tensor-core products and
+# asynchronous global -> shared copies
+TENSOR_CORE_OPS = ("HGMMA", "HMMA")
+ASYNC_COPY_OPS = ("UTMALDG", "UBLKCP", "LDGSTS")
+
+
+def find_cuobjdump() -> str:
+    """``cuobjdump`` from the toolkit that holds ``nvcc``, or from Triton's
+    bundled copy; raises if there is none (the SASS check does not skip)."""
+    cands = [shutil.which("cuobjdump"),
+             os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"),
+             "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for cand in cands:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found (PATH, next to nvcc, "
+                       "/usr/local/cuda/bin, triton/backends/nvidia/bin)")
+
+
+def short_names(mangled):
+    """Demangled kernel names without their argument lists, where
+    ``c++filt`` is there; the mangled names otherwise."""
+    filt = shutil.which("c++filt")
+    if not filt or not mangled:
+        return list(mangled)
+    out = subprocess.run([filt], input="\n".join(mangled), text=True,
+                         capture_output=True, check=True).stdout.splitlines()
+    return [n.replace("(anonymous namespace)::", "").removeprefix("void ")
+            .split("(")[0] for n in out]
+
+
+def ptxas_report(name: str):
+    """Per kernel function of ``csrc/<name>.cu``: registers, spill bytes and
+    static shared memory, from the ``-Xptxas -v`` lines of its build log."""
+    log = (_build.BUILD_DIR / f"{name}.nvcc.log").read_text()
+    funcs = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            funcs.append({"function": m.group(1)})
+            continue
+        if not funcs:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            funcs[-1]["spill_stores"] = int(m.group(1))
+            funcs[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            funcs[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            funcs[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+    for f, short in zip(funcs, short_names([f["function"] for f in funcs])):
+        f["function"] = short
+    return funcs
+
+
+def sass_counts(lib) -> dict:
+    """``{kernel: {opcode: count}}`` of the tensor-core and asynchronous-copy
+    instructions in a library's SASS (``cuobjdump -sass``)."""
+    sass = subprocess.run([find_cuobjdump(), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    per, fn = {}, None
+    ops_ = TENSOR_CORE_OPS + ASYNC_COPY_OPS
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per[fn] = dict.fromkeys(ops_, 0)
+            continue
+        if fn is not None:
+            for op in ops_:
+                if re.search(r"\b" + op + r"(\.|\s|$)", line):
+                    per[fn][op] += 1
+    return dict(zip(short_names(list(per)), per.values()))
+
+
+def phase_build(libs) -> None:
+    ptxas = {name: ptxas_report(name) for name in sorted(libs)}
+    sass = sass_counts(libs["flash_attention"])
+    tc = {k: c for k, c in sass.items() if "flash_tc_kernel" in k}
+    if not tc:
+        raise AssertionError("flash_attention: no bf16 tensor-core kernel in "
+                             f"the library's SASS ({sorted(sass)})")
+    for k, c in tc.items():
+        if not sum(c[op] for op in TENSOR_CORE_OPS) \
+                or not sum(c[op] for op in ASYNC_COPY_OPS):
+            raise AssertionError(f"{k}: no tensor-core or no asynchronous-copy "
+                                 f"instruction in its SASS: {c}")
+    totals = {op: sum(c[op] for c in sass.values())
+              for op in TENSOR_CORE_OPS + ASYNC_COPY_OPS}
+    emit("build_report", ptxas=ptxas, cuobjdump=find_cuobjdump(),
+         flash_attention_sass={"per_kernel": sass, "library_total": totals})
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -325,17 +438,24 @@ def phase_kernels(args):
 # phase 3 (continued): the model kernels against their plain versions
 # --------------------------------------------------------------------------- #
 # tests/test_kernels.py's shapes, then the serving slice's (B = 4 prompts of
-# 512 tokens, and the ragged 300-token prompt)
+# 512 tokens, and the ragged 300-token prompt), then a length no tile size
+# divides and a single row
 FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
                 (1, 512, 2, 2, 128), (3, 64, 6, 3, 16),
-                (4, 512, 14, 2, 64), (4, 300, 14, 2, 64)]
+                (4, 512, 14, 2, 64), (4, 300, 14, 2, 64),
+                (1, 77, 4, 2, 32), (2, 1, 2, 1, 16)]
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
               (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300)]
+# tests/test_kernels.py's shapes, qwen2's width (the timed case, 2048 rows
+# of 896), a tail that is not a whole vector and rows that start unaligned
+# (999), and the longest row the kernel takes (65536, the strided path)
+RMS_TIMED = ((2048, 896), torch.bfloat16)
 RMS_SHAPES = [((4, 64, 256), torch.float32), ((4, 64, 256), torch.bfloat16),
               ((128, 512), torch.float32), ((128, 512), torch.bfloat16),
               ((3, 5, 7, 64), torch.float32), ((3, 5, 7, 64), torch.bfloat16),
-              ((2048, 896), torch.bfloat16)]
+              RMS_TIMED, ((2048, 896), torch.float32),
+              ((5, 999), torch.bfloat16), ((2, 65536), torch.float32)]
 # the reference's tolerances (tests/test_kernels.py)
 MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = 1e-4
@@ -426,6 +546,7 @@ def phase_model_kernels():
                 n += 1
     shape = (SERVE_B, SERVE_S, 14, 2, 64)
     q, k, v = flash_inputs(0, *shape, torch.bfloat16)
+    q32, k32, v32 = flash_inputs(0, *shape, torch.float32)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     recs["flash_attention"] = {
         "shape": list(shape), "dtype": "bfloat16", "cases": n,
@@ -435,6 +556,9 @@ def phase_model_kernels():
         "tolerance": "f32 rtol=atol=1e-5, bf16 rtol=atol=2e-2, vs "
                      "attention_ref on the same (widened) inputs",
         "ms": median_ms(lambda: ops.flash_attention(q, k, v)),
+        "ms_f32": median_ms(lambda: ops.flash_attention(q32, k32, v32)),
+        "design": "bf16: wgmma (tensor cores) fed by TMA; float32 (ms_f32, "
+                  "f32 inputs): FMAs on the CUDA cores",
         "plain_ms": median_ms(lambda: ref.attention_ref(
             q.float(), k.float(), v.float()).to(q.dtype), iters=20),
         "library": "F.scaled_dot_product_attention(is_causal=True, "
@@ -489,8 +613,8 @@ def phase_model_kernels():
             f"rmsnorm{shape} {dtype}", got, want, tol, tol))
         n += 1
     rng = np.random.default_rng(0)
-    rows, d = RMS_SHAPES[-1][0]
-    x, w = normal(rng, (rows, d), torch.bfloat16), normal(rng, (d,))
+    (rows, d), dtype = RMS_TIMED
+    x, w = normal(rng, (rows, d), dtype), normal(rng, (d,))
     w_x = w.to(x.dtype)
     recs["rmsnorm"] = {
         "shape": [rows, d], "dtype": "bfloat16", "cases": n,
@@ -878,10 +1002,13 @@ def main() -> None:
          nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    libs = _build.load()
+    libs = _build.build_all()
+    _build.load()
     emit("build", seconds=time.perf_counter() - t0, nvcc=_build.find_nvcc(),
-         flags=" ".join(_build.NVCC_FLAGS), libraries=sorted(libs),
+         flags={name: " ".join(_build.nvcc_flags(name)) for name in libs},
+         libraries=sorted(libs),
          build_dir=os.path.relpath(_build.BUILD_DIR, HERE))
+    phase_build(libs)
 
     event, alloc = phase_kernels(args)
     model_kernels = phase_model_kernels()
@@ -890,14 +1017,16 @@ def main() -> None:
     served = phase_serve()
 
     def row(name, rec, launches, replaces, tolerance, path):
+        lib_ms = rec.get("library_ms")
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"],
-                "library_ms": rec.get("library_ms"), "shape": rec["shape"],
-                "tolerance": tolerance, "path": path}
+                "bound_by": rec["bound_by"], "library_ms": lib_ms,
+                "bound_share": rec["bound_ms"] / rec["ms"],
+                "library_ratio": rec["ms"] / lib_ms if lib_ms else None,
+                "shape": rec["shape"], "tolerance": tolerance, "path": path}
 
     mk = model_kernels
     print(json.dumps({"kernels": [

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.api import resolve_device
 from repro_torch.models.common import split_layers, tree_map
 from repro_torch.sim.types import (InstanceCategory, InstanceSpec, NodeSpec,
                                    Request, RequestClass)
@@ -92,15 +93,17 @@ def _array_to_torch(a) -> torch.Tensor:
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
-                      device="cpu") -> Dict[str, Any]:
+                      device=None) -> Dict[str, Any]:
     """The reference's parameter tree as numpy arrays (``jax.tree.map(
     np.asarray, params)``) -> the port's parameters on ``device``, in
     ``cfg.param_dtype``, with the stacked ``layers`` split per layer (see the
-    module docstring).  Only the families the port serves (``dense``,
-    ``ssm``) have this layout."""
+    module docstring).  ``device=None`` means CUDA, as for ``build_model``,
+    and raises where there is none; pass ``device="cpu"`` for the CPU.  Only
+    the families the port serves (``dense``, ``ssm``) have this layout."""
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     params = tree_map(
         lambda a: _array_to_torch(a).to(device=device, dtype=dtype),

@@ -6,45 +6,67 @@
 // max m, denominator l and f32 accumulator in VMEM scratch, GQA through the
 // k/v index maps, fully masked blocks skipped with pl.when).
 //
-// Design for Hopper: one 128-thread block per (b*H + h, 64-row q tile); the
-// k loop runs inside the block and stops at the causal bound, so blocks
-// above the diagonal are never visited.  The KV head is h / (H / KV):
-// repeated heads are never materialised.  Any S works: the q and k tails are
-// masked (rows past S are computed on zeros and not stored, keys past S get
-// the mask value), so there is no block halving and no host padding.
-// Inputs of either dtype are widened to float32 as they are staged in shared
-// memory; m, l and the accumulator are float32 registers and the products
-// are float32 FMAs on the CUDA cores — no TF32, since the float32 case is
-// held to 1e-5.  Masked scores are -1e30, not -inf, so exp(m_prev - m_new)
-// never reads inf - inf; the output is acc / max(l, 1e-30) as in the
-// reference.  Each thread owns a 4 x 8 patch of the 64 x 64 score tile and a
-// 4 x D/8 patch of the output; P goes through shared memory between the two
-// products.  At qwen2's shapes (B = 4, S = 512, bf16) the work is 8.4 MB
-// and 1.9 GFLOP causal: bound by bytes (2.5 us) against the tensor cores'
-// bf16 rate, but this first version runs the products on the CUDA cores in
-// float32 (>= 28 us at 67 TFLOP/s); tensor cores are later work.
+// Both instantiations share the reference's contract: one block per
+// (b*H + h, 64-row q tile); the k loop runs inside the block and stops at the
+// causal bound, so tiles above the diagonal are never visited; the KV head
+// is h / (H / KV), never materialised; any S works, with rows past S computed
+// on zeros and not stored and keys past S masked (no host padding, no block
+// halving); masked scores are -1e30, not -inf, so exp(m_prev - m_new) never
+// reads inf - inf; the output is acc / max(l, 1e-30).  The element type
+// decides the design — a contract of the function, not a fallback:
+//
+// bfloat16 (the served path): the products run on the tensor cores.  One
+// warpgroup (128 threads) owns a 64-row q tile and issues
+// wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate).  S = Q K^T reads Q and
+// K from shared memory (K-major: d contiguous, as the model stores them);
+// O += P V takes P from registers — the m64n64 f32 score accumulator
+// converts pairwise to the bf16 A fragment, so P never goes through shared
+// memory — and V as an MN-major operand (transpose flag).  Tiles arrive by
+// TMA (cp.async.bulk.tensor over 4-D maps of [B, S, heads, D], so rows past S
+// within one batch row read as zeros) into a two-stage K/V ring whose
+// mbarriers the block waits on; tile j+1 is in flight while tile j is
+// multiplied.  The TMA swizzle (32, 64 or 128 B: one row of D <= 64, half a
+// row at D = 128) is the one the wgmma descriptors name.  Only the diagonal
+// tile (and the ragged last one) is masked element-wise; log2(e) is folded
+// into the scale, so each score costs one FFMA and one EX2; m, l and acc
+// are f32 registers; P is rounded to bf16 before P V, the rounding of the
+// reference's own oracle (probs.astype(v.dtype)); l sums the unrounded P.
+// q tiles launch longest
+// first (reversed blockIdx.y) so the grid's tail is short tiles.  At qwen2's
+// shape (B = 4, S = 512, H = 14, KV = 2, D = 64) the work is 8.4 MB and
+// 1.9 GFLOP causal: bound by bytes (2.5 us) against 1.9 us at 989 TFLOP/s.
+//
+// float32: the products stay f32 FMAs on the CUDA cores (inputs staged in
+// shared memory, each thread a 4 x 8 patch of the score tile and a 4 x D/8
+// patch of the output, P through shared memory): the f32 case is held to
+// 1e-5, which TF32 tensor cores cannot meet.
 #include "common.cuh"
+#include <cuda.h>
 #include <math.h>
 
 namespace {
 
 constexpr int BQ = 64;            // q rows per block
 constexpr int BK = 64;            // keys per k tile
-constexpr int PAD = 4;            // keeps float4 rows 16-byte aligned
-constexpr int THREADS = 128;      // 16 row groups x 8 column lanes
+constexpr int THREADS = 128;      // one warpgroup
 constexpr float NEG = -1e30f;
 
+// --------------------------------------------------------------------------
+// float32: CUDA cores
+// --------------------------------------------------------------------------
+constexpr int PAD = 4;            // keeps float4 rows 16-byte aligned
+
 template <int D>
-constexpr int smem_floats() {
+constexpr int f32_smem_floats() {
     // QT [D][BQ+PAD], KT [D][BK+PAD], V [BK][D], PT [BK][BQ+PAD]
     return D * (BQ + PAD) + D * (BK + PAD) + BK * D + BK * (BQ + PAD);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int H,
-             int KV, float scale, int causal) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int KV, float scale, int causal) {
     extern __shared__ float4 smem4[];
     float* QT = reinterpret_cast<float*>(smem4);
     float* KT = QT + D * (BQ + PAD);
@@ -69,8 +91,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BQ * D; idx += THREADS) {
         const int r = idx / D, dd = idx % D;
         const int s = q0 + r;
-        QT[dd * (BQ + PAD) + r] =
-            s < S ? to_f32(q[q_base + s * q_row + dd]) : 0.0f;
+        QT[dd * (BQ + PAD) + r] = s < S ? q[q_base + s * q_row + dd] : 0.0f;
     }
 
     float m[4], l[4], acc[4][DJ];
@@ -93,9 +114,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int c = idx / D, dd = idx % D;
             const int s = k0 + c;
             const bool in = s < S;
-            KT[dd * (BK + PAD) + c] =
-                in ? to_f32(k[k_base + s * k_row + dd]) : 0.0f;
-            Vs[c * D + dd] = in ? to_f32(v[k_base + s * k_row + dd]) : 0.0f;
+            KT[dd * (BK + PAD) + c] = in ? k[k_base + s * k_row + dd] : 0.0f;
+            Vs[c * D + dd] = in ? v[k_base + s * k_row + dd] : 0.0f;
         }
         __syncthreads();
 
@@ -179,48 +199,516 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int j = 0; j < DJ; ++j)
-            o[q_base + s * q_row + tc + 8 * j] = from_f32<T>(acc[i][j] / den);
+            o[q_base + s * q_row + tc + 8 * j] = acc[i][j] / den;
     }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, float scale, int causal,
-                   cudaStream_t st) {
-    constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int KV, float scale, int causal,
+                       cudaStream_t st) {
+    constexpr int bytes = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
     // above 48 KB only after opting in (a host-side call, set every launch
     // so that it holds on whichever device is current)
     cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid(B * H, (S + BQ - 1) / BQ);
-    flash_kernel<T, D><<<grid, THREADS, bytes, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, scale,
+    flash_f32_kernel<D><<<grid, THREADS, bytes, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, scale,
         causal);
     return cudaGetLastError();
 }
 
-template <typename T>
+// --------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma) fed by TMA
+// --------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+// Shared-memory geometry of one [64 rows x D] bf16 tile as TMA writes it:
+// boxes of BOX columns (rows of ROW_B bytes, swizzled in atoms of 8 rows),
+// NBOX of them side by side.  The wgmma descriptors address the same atoms.
+template <int D>
+struct Tile {
+    static constexpr int BOX = D < 64 ? D : 64;      // columns per TMA box
+    static constexpr int NBOX = D / BOX;             // 1, or 2 at D = 128
+    static constexpr int ROW_B = BOX * 2;            // 32, 64 or 128 bytes
+    static constexpr int BOX_B = 64 * ROW_B;         // one box of 64 rows
+    static constexpr int BYTES = NBOX * BOX_B;       // = 64 * D * 2
+    static constexpr int ATOM_B = 8 * ROW_B;         // 8 swizzled rows
+    // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+    static constexpr uint64_t LAYOUT = ROW_B == 128 ? 1 : ROW_B == 64 ? 2 : 3;
+    static constexpr CUtensorMapSwizzle SWIZZLE =
+        ROW_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : ROW_B == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+// Q tile, then two K/V stages, then three mbarriers; +1024 to align the
+// base to the 128-byte swizzle's 1024-byte repeat.
+template <int D>
+constexpr int tc_smem_bytes() { return 5 * Tile<D>::BYTES + 1024 + 64; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A copy that never
+// lands (a fault, not a slow tile) traps after ~2^34 cycles (seconds) so the
+// launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    const long long t0 = clock64();
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (!done && clock64() - t0 > (1LL << 34)) __trap();
+    } while (!done);
+}
+
+// one TMA box: columns [c0, c0 + BOX) of rows [s0, s0 + 64) of head `head`
+// in batch row `b`; rows past S arrive as zeros
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t bar, int c0, int head,
+                                         int s0, int b) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(c0), "r"(head), "r"(s0), "r"(b)
+        : "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void tma_tile(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t bar, int head, int s0,
+                                         int b) {
+#pragma unroll
+    for (int c = 0; c < Tile<D>::NBOX; ++c)
+        tma_load(map, dst + c * Tile<D>::BOX_B, bar, c * Tile<D>::BOX, head,
+                 s0, b);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading / stride
+// byte offsets (16-byte units) and the swizzle layout type
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+           | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+           | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+           | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads / writes across the
+// asynchronous wgmma region
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] += A[64 x 16] . B[16 x 16], A from registers, B MN-major
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] . B[16 x 32], A from registers, B MN-major
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers, B MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers, B MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (D == 16) wgmma_rs_n16(d, a, db);
+    else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+    else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+    else wgmma_rs_n128(d, a, db);
+}
+
+// 2^x by the SFU (flushes denormal results to 0; 2^(-huge) is 0)
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                bf16* __restrict__ o, int S, int H, int KV, float scale_log2,
+                int causal) {
+    using T = Tile<D>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t sQ = base;
+    const uint32_t barQ = base + 5 * T::BYTES;
+    // stage st: K at base + (1 + 2 st) tiles, V right after, barrier barQ + 8 (1 + st)
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;       // fragment row / column pair
+    const int bh = blockIdx.x;
+    const int b = bh / H, h = bh % H;
+    const int kvh = h / (H / KV);
+    const int qt = gridDim.y - 1 - blockIdx.y;   // longest tiles first
+    const int q0 = qt * BQ;
+    const int n_k_all = (S + BK - 1) / BK;
+    const int n_k = causal && qt + 1 < n_k_all ? qt + 1 : n_k_all;
+
+    if (tid == 0) {
+        mbar_init(barQ, 1);
+        mbar_init(barQ + 8, 1);
+        mbar_init(barQ + 16, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(barQ, T::BYTES);
+        tma_tile<D>(&map_q, sQ, barQ, h, q0, b);
+        mbar_expect_tx(barQ + 8, 2 * T::BYTES);
+        tma_tile<D>(&map_k, base + T::BYTES, barQ + 8, kvh, 0, b);
+        tma_tile<D>(&map_v, base + 2 * T::BYTES, barQ + 8, kvh, 0, b);
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;   // rows g and g + 8
+    const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+
+    mbar_wait(barQ, 0);
+    for (int j = 0; j < n_k; ++j) {
+        const int st = j & 1;
+        const uint32_t sK = base + (1 + 2 * st) * T::BYTES;
+        const uint32_t sV = sK + T::BYTES;
+        if (tid == 0 && j + 1 < n_k) {
+            // the other stage was released by the barrier that ended j - 1
+            const uint32_t nK = base + (3 - 2 * st) * T::BYTES;
+            const uint32_t nbar = barQ + 8 * (2 - st);
+            mbar_expect_tx(nbar, 2 * T::BYTES);
+            tma_tile<D>(&map_k, nK, nbar, kvh, (j + 1) * BK, b);
+            tma_tile<D>(&map_v, nK + T::BYTES, nbar, kvh, (j + 1) * BK, b);
+        }
+        mbar_wait(barQ + 8 * (1 + st), (j >> 1) & 1);
+
+        // S = Q K^T: D / 16 steps of k16 over the head dim
+        float s[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            const int col = kk * 16;                 // head-dim column
+            const uint32_t off = (col / T::BOX) * T::BOX_B + (col % T::BOX) * 2;
+            wgmma_ss_n64(s, make_desc(sQ + off, 16, T::ATOM_B, T::LAYOUT),
+                         make_desc(sK + off, 16, T::ATOM_B, T::LAYOUT), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+
+        // mask the diagonal / ragged tile, online softmax (m in score units,
+        // p = 2^(s * scale_log2 - m * scale_log2), one FFMA and one EX2 per
+        // score); s[4c + e] is row (e < 2 ? g : g + 8), key 8c + 2t + (e & 1)
+        const int k0 = j * BK;
+        const bool masked = (causal && j == qt) || k0 + BK > S;
+        float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            if (masked) {
+                const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+                const int qp = (i & 2) ? row1 : row0;
+                if (kp >= S || (causal && kp > qp)) s[i] = NEG;
+            }
+            if (i & 2) mx1 = fmaxf(mx1, s[i]);
+            else mx0 = fmaxf(mx0, s[i]);
+        }
+        // a row's 64 keys lie in the 4 lanes of one quad
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float a0 = ex2((m0 - mn0) * scale_log2);
+        const float a1 = ex2((m1 - mn1) * scale_log2);
+        m0 = mn0;
+        m1 = mn1;
+        const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+        float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+            s[i] = p;
+            if (i & 2) rs1 += p;
+            else rs0 += p;
+        }
+        l0 = l0 * a0 + rs0;          // this lane's share; the quad sums last
+        l1 = l1 * a1 + rs1;
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+
+        // O += P V: P's accumulator layout is the bf16 A fragment, pairwise
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+            pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)   // keys 16 kk .. 16 kk + 15
+            wgmma_pv<D>(acc, pa[kk],
+                        make_desc(sV + kk * 16 * T::ROW_B, T::BOX_B,
+                                  T::ATOM_B, T::LAYOUT));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        __syncthreads();             // stage st is free for tile j + 2
+    }
+
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    const size_t row_stride = static_cast<size_t>(H) * D;
+    bf16* o0 = o + (static_cast<size_t>(b) * S + row0) * row_stride + h * D;
+    bf16* o1 = o0 + 8 * row_stride;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+        const int col = 8 * c + 2 * t;
+        if (row0 < S)
+            *reinterpret_cast<__nv_bfloat162*>(o0 + col) = __floats2bfloat162_rn(
+                acc[4 * c] / den0, acc[4 * c + 1] / den0);
+        if (row1 < S)
+            *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+                acc[4 * c + 2] / den1, acc[4 * c + 3] / den1);
+    }
+}
+
+// cuTensorMapEncodeTiled is a driver-API call; reached through the runtime's
+// entry-point lookup so that the library links against cudart only
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// [B, S, heads, D] bf16, contiguous, 16-byte aligned -> a 4-D map whose box
+// is 64 rows of one head (BOX columns)
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(heads),
+                                static_cast<cuuint64_t>(S),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t row = static_cast<cuuint64_t>(D) * sizeof(bf16);
+    const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+    const cuuint32_t box[4] = {Tile<D>::BOX, 1, 64, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::SWIZZLE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int KV, float scale, int causal,
+                      cudaStream_t st) {
+    CUtensorMap mq, mk, mv;
+    if (!make_map<D>(&mq, q, B, S, H) || !make_map<D>(&mk, k, B, S, KV)
+        || !make_map<D>(&mv, v, B, S, KV))
+        return cudaErrorInvalidValue;
+    constexpr int bytes = tc_smem_bytes<D>();
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(B * H, (S + BQ - 1) / BQ);
+    flash_tc_kernel<D><<<grid, THREADS, bytes, st>>>(
+        mq, mk, mv, static_cast<bf16*>(o), S, H, KV,
+        scale * 1.4426950408889634f, causal);
+    return cudaGetLastError();
+}
+
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int H, int KV, int D, float scale,
-                     int causal, cudaStream_t st) {
+                     int causal, int dtype, cudaStream_t st) {
+#define REPRO_FLASH_CASE(DIM)                                                \
+    case DIM:                                                                \
+        return dtype == DTYPE_BF16                                           \
+            ? launch_tc<DIM>(q, k, v, o, B, S, H, KV, scale, causal, st)     \
+            : launch_f32<DIM>(q, k, v, o, B, S, H, KV, scale, causal, st);
     switch (D) {
-        case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, scale, causal, st);
-        case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, scale, causal, st);
-        case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, scale, causal, st);
-        case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, scale, causal, st);
+        REPRO_FLASH_CASE(16)
+        REPRO_FLASH_CASE(32)
+        REPRO_FLASH_CASE(64)
+        REPRO_FLASH_CASE(128)
         default: return cudaErrorInvalidValue;
     }
+#undef REPRO_FLASH_CASE
 }
 
 }  // namespace
 
 // q, o: [B, S, H, D]; k, v: [B, S, KV, D]; all contiguous, one dtype
-// (DTYPE_F32 or DTYPE_BF16).  D in {16, 32, 64, 128}, H a multiple of KV.
-// Launches on `stream`, never synchronises; returns the launch's
-// cudaError_t (0 on success).
+// (DTYPE_F32: CUDA cores; DTYPE_BF16: tensor cores, q / k / v 16-byte
+// aligned for TMA).  D in {16, 32, 64, 128}, H a multiple of KV.  Launches
+// on `stream`, never synchronises; returns the launch's cudaError_t
+// (0 on success).
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, int B, int S,
                                         int H, int KV, int D, float scale,
@@ -229,14 +717,15 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
         return static_cast<int>(cudaErrorInvalidValue);
     if ((S + BQ - 1) / BQ > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaErrorInvalidValue;
-    if (dtype == DTYPE_F32)
-        err = launch_d<float>(q, k, v, o, B, S, H, KV, D, scale, causal, st);
-    else if (dtype == DTYPE_BF16)
-        err = launch_d<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, scale,
-                                      causal, st);
-    return static_cast<int>(err);
+    if (dtype != DTYPE_F32 && dtype != DTYPE_BF16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == DTYPE_BF16
+        && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+             | reinterpret_cast<uintptr_t>(v)) & 15))
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    return static_cast<int>(launch_d(q, k, v, o, B, S, H, KV, D, scale,
+                                     causal, dtype,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 REPRO_EXPORT const char* flash_attention_error_string(int code) {

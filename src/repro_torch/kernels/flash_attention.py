@@ -5,8 +5,10 @@ grid ``(B*H, q blocks, k blocks)``): one launch computes
 ``softmax(q k^T / sqrt(d)) v`` for every head by blockwise online softmax,
 reading the ``[B, S, H, d]`` / ``[B, S, KV, d]`` layouts of the model zoo
 directly (no head transposes, no repeated KV heads).  The kernel is
-``csrc/flash_attention.cu``; this module is its launcher.  The plain version
-is :func:`repro_torch.kernels.ref.attention_ref`.
+``csrc/flash_attention.cu``: bfloat16 inputs run on the tensor cores
+(``wgmma`` fed by TMA, P rounded to bfloat16 before ``P v``), float32 inputs
+on the CUDA cores in float32.  This module is its launcher.  The plain
+version is :func:`repro_torch.kernels.ref.attention_ref`.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, S, H, d = q.shape
     KV = k.shape[2]
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.launch(

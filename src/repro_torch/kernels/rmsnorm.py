@@ -2,8 +2,9 @@
 
 Twin of the reference's ``kernels/rmsnorm.py`` (a Pallas TPU kernel over
 128-row blocks): one launch normalises every row of ``x [rows, d]`` with
-float32 statistics and writes the result in ``x``'s dtype.  The kernel is
-``csrc/rmsnorm.cu``; this module is its launcher.  The plain version is
+float32 statistics and writes the result in ``x``'s dtype, one warp per row
+with the row in registers.  The kernel is ``csrc/rmsnorm.cu``; this module is
+its launcher.  The plain version is
 :func:`repro_torch.kernels.ref.rmsnorm_ref`.  No model of either package
 calls it: the models normalise with ``models.common.rms_norm``, and the
 kernel is the library entry point ``ops.rmsnorm``.
@@ -24,6 +25,7 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
     prepares them.  Allocates the output, does not synchronise.
     """
     rows, d = x.shape
+    x, weight = _build.aligned16(x), _build.aligned16(weight)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.launch(

@@ -323,6 +323,65 @@ def test_flash_attention_plain_ragged_lengths_match_reference_oracle(
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
+def _flash_tiles_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool, block: int = 64) -> torch.Tensor:
+    """The rounding points of the bf16 tensor-core kernel
+    (``csrc/flash_attention.cu``), in float32 on the CPU: scores of the bf16
+    ``q, k`` in float32; per 64-key tile the running max, ``P = 2^(s c - m c)``
+    with ``c = log2(e) / sqrt(d)``, the ``alpha`` rescale of ``l`` and of the
+    float32 accumulator; P rounded to
+    bf16 against the running max before ``P v`` (the reference oracle's
+    ``probs.astype(v.dtype)``), ``l`` summing the unrounded P.  Returns
+    float32; the kernel rounds that to bf16."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, d).permute(0, 2, 3, 1, 4)
+    kf, vf = (t.float().permute(0, 2, 1, 3)[:, :, None] for t in (k, v))
+    scale_log2 = torch.tensor(1.0 / np.sqrt(d) * np.log2(np.e),
+                              dtype=torch.float32)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    pos = torch.arange(S)
+    for k0 in range(0, S, block):
+        s = qf @ kf[..., k0:k0 + block, :].transpose(-1, -2)
+        if causal:
+            s = torch.where(pos[k0:k0 + block][None, :] <= pos[:, None], s,
+                            torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale_log2)
+        p = torch.exp2(s * scale_log2 - m_new * scale_log2)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[..., k0:k0 + block, :]
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d)
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("B,S,H,KV,d", FLASH_SHAPES + [(2, 300, 14, 2, 64)])
+def test_flash_attention_bf16_tile_rounding_matches_reference(B, S, H, KV, d,
+                                                              causal):
+    """The tensor-core kernel's arithmetic (emulated above) against the
+    reference's Pallas kernel in bf16 (interpret mode) and its float32
+    oracle, at the reference's bf16 bar (rtol 2e-2, atol 2e-1); the
+    emulation stays within 2e-2 of the oracle everywhere.  qwen2's head
+    layout at S = 300 runs the Pallas kernel as one block of 300."""
+    rng = np.random.default_rng(B * 1000 + S + H + 7)
+    q, k, v = (_normal(rng, (B, S, n, d)) for n in (H, KV, KV))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    block = 128 if S % 128 == 0 else S
+    pallas = np.asarray(ref_ops.flash_attention(
+        jq, jk, jv, causal=causal, block_q=block, block_k=block), np.float32)
+    oracle = np.asarray(ref_kref.attention_ref(
+        *(a.astype(jnp.float32) for a in (jq, jk, jv)), causal=causal))
+    got = _flash_tiles_emulation(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal).numpy()
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-1)
+    assert np.abs(got - oracle).max() < 2e-2
+
+
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
               (1, 300, 4, 1, 64, 128, 300)]
@@ -371,7 +430,8 @@ def test_ssd_model_form_matches_reference_model_form():
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-@pytest.mark.parametrize("shape", [(4, 64, 256), (128, 512), (3, 5, 7, 64)])
+@pytest.mark.parametrize("shape", [(4, 64, 256), (128, 512), (3, 5, 7, 64),
+                                   (16, 896), (5, 999)])
 def test_rmsnorm_plain_matches_reference_kernel_and_oracle(shape, dtype):
     rng = np.random.default_rng(len(shape))
     x, w = _normal(rng, shape), _normal(rng, shape[-1:])

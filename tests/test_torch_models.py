@@ -80,7 +80,7 @@ def _pair(name: str, size: str, impl: str):
         rparams = dict(rparams, layers=layers)
     model = build_model(cfg, impl=impl, device="cpu")
     params = convert.params_from_numpy(
-        cfg, jax.tree.map(np.asarray, rparams))
+        cfg, jax.tree.map(np.asarray, rparams), device="cpu")
     return rmodel, rparams, model, params
 
 
@@ -199,7 +199,7 @@ def test_params_from_numpy_splits_the_stacked_layers():
     cfg = smoke_config("qwen2-0.5b")
     rmodel = RefModel(ref_smoke_config("qwen2-0.5b"))
     tree = jax.tree.map(np.asarray, rmodel.init(jax.random.PRNGKey(1)))
-    params = convert.params_from_numpy(cfg, tree)
+    params = convert.params_from_numpy(cfg, tree, device="cpu")
     assert len(params["layers"]) == cfg.num_layers
     np.testing.assert_array_equal(
         params["layers"][1]["attn"]["wq"].numpy(),
@@ -208,13 +208,14 @@ def test_params_from_numpy_splits_the_stacked_layers():
     bf = convert.params_from_numpy(
         dataclasses.replace(cfg, param_dtype="bfloat16"),
         jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
-                     tree))
+                     tree), device="cpu")
     assert bf["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         bf["embed"].float().numpy(),
         np.asarray(jnp.asarray(tree["embed"], jnp.bfloat16), np.float32))
     with pytest.raises(NotImplementedError):
-        convert.params_from_numpy(smoke_config("zamba2-2.7b"), {})
+        convert.params_from_numpy(smoke_config("zamba2-2.7b"), {},
+                                  device="cpu")
 
 
 def test_kernel_lowerings_on_cpu_count_no_launch():

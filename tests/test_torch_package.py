@@ -88,6 +88,9 @@ else:
     ".build_model('qwen2-0.5b', impl='flash')",
     "__import__('repro_torch.models.api', fromlist=['api'])"
     ".build_model('mamba2-130m', impl='pallas', device='cuda')",
+    "__import__('repro_torch.convert', fromlist=['convert']).params_from_numpy("
+    "__import__('repro_torch.configs', fromlist=['configs'])"
+    ".get_config('qwen2-0.5b'), {})",
 ))
 def test_default_entry_points_need_cuda_and_say_so(call):
     """No silent CPU run: without a card the device engines raise."""
@@ -142,5 +145,20 @@ def test_kernel_sources_are_in_the_package_and_build_dir_is_ignored():
     root = pathlib.Path(SRC).parent
     assert _build.BUILD_DIR == root / "build" / "repro_torch_kernels"
     assert "build/" in (root / ".gitignore").read_text().split()
-    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert set(_build.SOURCE_FLAGS) == set(_build.KERNELS)
+    for name in ("event_step", "alloc_active_set", "ssd_scan"):
+        assert "-fmad=false" in _build.nvcc_flags(name)
+    for name in ("flash_attention", "rmsnorm"):
+        assert "-fmad=false" not in _build.nvcc_flags(name)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_digest_covers_each_sources_own_flags(monkeypatch):
+    """A library is rebuilt when its own flags change, and only then."""
+    from repro_torch.kernels import _build
+    before = {name: _build._digest(name) for name in _build.KERNELS}
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "rmsnorm", ["-fmad=false"])
+    after = {name: _build._digest(name) for name in _build.KERNELS}
+    assert after["rmsnorm"] != before["rmsnorm"]
+    assert {k: v for k, v in after.items() if k != "rmsnorm"} == \
+        {k: v for k, v in before.items() if k != "rmsnorm"}
