@@ -9,12 +9,17 @@ with a non-zero exit code:
   1. env               torch / CUDA versions, the card's name and power limit
   2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc,
                        with each source's flags, registers, spills and shared
-                       memory as ptxas reports them, and the tensor-core and
-                       asynchronous-copy instructions in flash_attention's SASS
-                       (cuobjdump; the run fails if the bf16 kernel has none)
+                       memory as ptxas reports them (the run fails on a
+                       spill), and the tensor-core and asynchronous-copy
+                       instructions in the SASS of flash_attention and
+                       ssd_scan (cuobjdump; the run fails if a bf16 kernel
+                       has no HGMMA)
   3. kernels           each kernel against its plain torch version on the card
                        (event_step also bit-for-bit against the host numpy
-                       core), with times: CUDA events, warm-up, >= 20 launches
+                       core, at shapes that take a one-CTA cluster, a row end
+                       inside a warp and a strided rest past the lanes held
+                       in registers), with times: CUDA events, warm-up,
+                       >= 20 launches
   4. run_batch         the main path: Simulator.run_batch, HAF-Static, the
                        dense-urban fleet at n_nodes=480 (S = 1440 instances),
                        B = 32 replicas, default engine (the event_step kernel),
@@ -33,11 +38,14 @@ with a non-zero exit code:
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions and times them beside PyTorch's own call for the same function
 (flash_attention in bf16, its tensor-core design, and in float32, its
-CUDA-core design).  Then a line {"kernels": [...]} (per kernel: route, source,
-the TPU kernel it replaces, launches on its path, error, time, plain-version
-time, roofline bound and the bound's share of the time, library time and the
-kernel's ratio to it), the card's name and power limit as nvidia-smi prints
-them, and the last line {"ok": true, "device": {...}}.
+CUDA-core design; ssd_scan in bf16, its three-launch tensor-core design, held
+both to the sequential recurrence and to ssd_scan_chunked_ref with the
+kernel's rounding points, and in float32, its CUDA-core design).  Then a line
+{"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
+launches on its path, error, time, plain-version time, roofline bound and the
+bound's share of the time, library time and the kernel's ratio to it), the
+card's name and power limit as nvidia-smi prints them, and the last line
+{"ok": true, "device": {...}}.
 
 With no options the fleet is full size (S = 1440, B = 32) and each replica's
 request stream is half the reference bench's, which keeps the run to a few
@@ -74,6 +82,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import allocator
 from repro_torch.core.allocator_np import allocate_cluster_np
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.event_step import event_step_geometry
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.sim import Simulator, make_scenario, workload_for
@@ -81,6 +90,7 @@ from repro_torch.sim.engine import DeadlineAwareAllocation, StaticPlacement
 from repro_torch.sim.event_core import NumpyBatchedEventCore
 
 DEV = torch.device("cuda", 0)
+SMS = torch.cuda.get_device_properties(0).multi_processor_count
 INF = float("inf")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
@@ -94,6 +104,10 @@ BF16_TC_FLOPS = 989e12
 # the serving slice: (model, impl, the kernel its prefill runs in every layer)
 SERVE = (("qwen2-0.5b", "flash", "flash_attention"),
          ("mamba2-130m", "pallas", "ssd_scan"))
+# the device kernels of each serving kernel, by a part of their names
+SERVE_KERNEL_NAMES = {"flash_attention": ("flash_tc_kernel",),
+                      "ssd_scan": ("ssd_state_kernel", "ssd_pass_kernel",
+                                   "ssd_out_kernel")}
 SERVE_B, SERVE_S, SERVE_STEPS, RAGGED_S = 4, 512, 32, 300
 SEED = 0                     # of the served models' weights and prompts
 
@@ -202,22 +216,36 @@ def sass_counts(lib) -> dict:
     return dict(zip(short_names(list(per)), per.values()))
 
 
+# the bf16 tensor-core kernels of each library, by a part of their names
+TC_KERNELS = {"flash_attention": ("flash_tc_kernel",),
+              "ssd_scan": ("ssd_state_kernel", "ssd_out_kernel")}
+
+
 def phase_build(libs) -> None:
     ptxas = {name: ptxas_report(name) for name in sorted(libs)}
-    sass = sass_counts(libs["flash_attention"])
-    tc = {k: c for k, c in sass.items() if "flash_tc_kernel" in k}
-    if not tc:
-        raise AssertionError("flash_attention: no bf16 tensor-core kernel in "
-                             f"the library's SASS ({sorted(sass)})")
-    for k, c in tc.items():
-        if not sum(c[op] for op in TENSOR_CORE_OPS) \
-                or not sum(c[op] for op in ASYNC_COPY_OPS):
-            raise AssertionError(f"{k}: no tensor-core or no asynchronous-copy "
-                                 f"instruction in its SASS: {c}")
-    totals = {op: sum(c[op] for c in sass.values())
-              for op in TENSOR_CORE_OPS + ASYNC_COPY_OPS}
-    emit("build_report", ptxas=ptxas, cuobjdump=find_cuobjdump(),
-         flash_attention_sass={"per_kernel": sass, "library_total": totals})
+    spills = [f"{name}:{f['function']}" for name, funcs in ptxas.items()
+              for f in funcs if f.get("spill_stores") or f.get("spill_loads")]
+    if spills:
+        raise AssertionError(f"register spills in {spills}")
+    report = {}
+    for lib, kernels in TC_KERNELS.items():
+        sass = sass_counts(libs[lib])
+        for part in kernels:
+            tc = {k: c for k, c in sass.items() if part in k}
+            if not tc:
+                raise AssertionError(f"{lib}: no {part} in the library's SASS "
+                                     f"({sorted(sass)})")
+            for k, c in tc.items():
+                if not sum(c[op] for op in TENSOR_CORE_OPS) \
+                        or not sum(c[op] for op in ASYNC_COPY_OPS):
+                    raise AssertionError(
+                        f"{k}: no tensor-core or no asynchronous-copy "
+                        f"instruction in its SASS: {c}")
+        totals = {op: sum(c[op] for c in sass.values())
+                  for op in TENSOR_CORE_OPS + ASYNC_COPY_OPS}
+        report[f"{lib}_sass"] = {"per_kernel": sass, "library_total": totals}
+    emit("build_report", ptxas=ptxas, spills=False,
+         cuobjdump=find_cuobjdump(), **report)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -240,6 +268,51 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 def median_ms(fn, repeats: int = 5, **kw) -> float:
     return float(np.median([time_ms(fn, **kw) for _ in range(repeats)]))
+
+
+def device_times(fn, iters: int = 1):
+    """``(wall ms, {kernel: device µs}, {kernel: launches})`` per call of
+    ``fn`` over ``iters`` calls under torch.profiler: the device activity
+    (CUPTI) by name, and the host clock around the calls, which the profiler
+    slows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    per, calls = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0.0)
+        per[evt.key] = per.get(evt.key, 0.0) + t / iters
+        calls[evt.key] = calls.get(evt.key, 0) + evt.count / iters
+    return wall, per, calls
+
+
+def profiled(fn, parts, iters: int = 20):
+    """``({part: device µs}, {part: launches})`` per call of ``fn``, summed
+    over the kernels whose names contain each of ``parts``; fails unless the
+    trace shows each part launched exactly once a call."""
+    fn()
+    _, per, calls = device_times(fn, iters)
+    us, launches = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0.0)
+    for key, t in per.items():
+        for part in parts:
+            if part in key:
+                us[part] += t
+                launches[part] += calls[key]
+    if any(n != 1 for n in launches.values()):
+        raise AssertionError(f"profiled launches per call of {parts}: "
+                             f"{launches}, expected one each")
+    return us, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -390,23 +463,37 @@ def alloc_bound_ms(N: int, S: int, rounds: torch.Tensor):
         "operations", bytes_
 
 
+# shapes of the event_step checks: small rows, then one whose row takes a
+# one-CTA cluster (B = 140 > 132 SMs), one whose row ends inside a warp of
+# an 8-CTA cluster, and one longer than the 8 x 1024 lanes a cluster holds
+# in registers (the strided rest)
+EVENT_SHAPES = ((5, 1), (5, 7), (4, 37), (3, 128), (5, 200), (2, 1441),
+                (140, 1440), (3, 1537), (1, 20000))
+
+
 def phase_kernels(args):
     B, S = args.batch, 3 * args.nodes
     errs = [check_event_step("random", 0, B, S)]
     n_cases = 1
     for kind in ("random", "stalled", "unavailable", "dead-rows", "all-inf",
                  "ties", "heap-first"):
-        for (b, s) in ((5, 1), (5, 7), (4, 37), (3, 128), (5, 200),
-                       (2, 1441)):
+        for (b, s) in EVENT_SHAPES:
             errs.append(check_event_step(kind, 1, b, s))
             n_cases += 1
     dev = to_dev([step_inputs("random", 0, B, S)[k] for k in STEP_KEYS])
     es_ms = median_ms(lambda: ops.event_step(*dev))
+    es_prof, es_launches = profiled(lambda: ops.event_step(*dev),
+                                    ("event_step",))
     es_plain = median_ms(lambda: ref.event_step_ref(*dev), iters=20)
     es_bound, es_by, es_bytes = event_step_bound_ms(B, S)
+    geom = {f"{b}x{s}": event_step_geometry(b, s, SMS)._asdict()
+            for b, s in ((B, S),) + EVENT_SHAPES[-3:]}
     event = {"name": "event_step", "shape": [B, S], "cases": n_cases,
+             "geometry": geom,
              "max_abs_err": max(errs), "bitwise_vs_host_numpy": True,
-             "ms": es_ms, "plain_ms": es_plain, "bound_ms": es_bound,
+             "ms": es_ms, "profiler_device_us": es_prof,
+             "cuda_launches_per_call": sum(es_launches.values()),
+             "plain_ms": es_plain, "bound_ms": es_bound,
              "bound_by": es_by, "bytes": es_bytes}
 
     alloc_shapes = [(1024, 64), (args.alloc_n, 128)]
@@ -459,6 +546,20 @@ RMS_SHAPES = [((4, 64, 256), torch.float32), ((4, 64, 256), torch.bfloat16),
 # the reference's tolerances (tests/test_kernels.py)
 MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = 1e-4
+# bf16 ssd_scan cases beside the timed serving shape (SSD_TIMED): mamba2's
+# ragged prompt as one chunk of 300, chunks of 64 at S = 512 (eight hi / lo
+# rounded states passed on), two B / C groups, and p, n that are not
+# multiples of 16 (p = 20 is not even a multiple of 8: the wrapper pads it)
+SSD_TIMED = (SERVE_B, SERVE_S, 24, 1, 64, 128, 256)
+SSD_BF16_SHAPES = [SSD_TIMED, (SERVE_B, RAGGED_S, 24, 1, 64, 128, RAGGED_S),
+                   (2, 512, 8, 1, 64, 128, 64), (1, 256, 8, 2, 64, 128, 64),
+                   (1, 192, 3, 1, 20, 36, 64), (2, 96, 4, 2, 40, 24, 32)]
+# the bf16 bar against the sequential recurrence (the reference's), and the
+# tolerance against ssd_scan_chunked_ref(bf16_points=True), which rounds
+# where the kernel rounds: they differ by float32 summation order, ex2.approx
+# and the final bf16 rounding of y, one bf16 ulp (<= 2^-8 relative)
+SSD_BF16_TOL = 2e-2
+SSD_POINTS_TOL = 1e-2
 
 
 def normal(rng, shape, dtype=torch.float32):
@@ -496,6 +597,13 @@ def assert_close(name, got, want, rtol, atol):
     return float(diff.max())
 
 
+def bar_share(got, want, rtol, atol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): how much of its
+    tolerance a check used (1.0 at the edge)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def flash_bound(B, S, H, KV, d, elem):
     bytes_ = B * S * (2 * H + 2 * KV) * d * elem        # q, k, v in; o out
     flops = 4 * B * H * d * (S * (S + 1) // 2)          # causal q.k and p.v
@@ -512,7 +620,7 @@ def ssd_bound(b, s, h, g, p, n, chunk, elem):
         # (C B^T) on and below the diagonal, its product with x, the carried
         # state's contribution and the state update
         flops += 2 * tri * (n + p) + 2 * l * n * p * 2
-    return bytes_, flops * b * h, F32_FLOPS
+    return bytes_, flops * b * h, BF16_TC_FLOPS if elem == 2 else F32_FLOPS
 
 
 def rms_bound(rows, d, elem):
@@ -568,8 +676,9 @@ def phase_model_kernels():
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
         **bound_of(*flash_bound(*shape, 2))}
 
-    # ssd_scan: 1e-4 against the sequential recurrence (float32), plus the
-    # serving dtype at 2e-2
+    # ssd_scan: float32 (the CUDA-core kernel) at 1e-4 against the sequential
+    # recurrence; bf16 (the tensor-core kernels) at 2e-2 against it and at
+    # 1e-2 against the chunked form with the kernel's rounding points
     err, n = 0.0, 0
     for shape in SSD_SHAPES:
         x, dt, A, B, C = ssd_inputs(n, *shape[:6])
@@ -581,20 +690,63 @@ def phase_model_kernels():
                   assert_close(f"ssd_scan{shape} state", st, st_r, SSD_TOL,
                                SSD_TOL))
         n += 1
-    shape = (SERVE_B, SERVE_S, 24, 1, 64, 128, 256)
+    err_bf16 = err_points = share_bf16 = share_points = 0.0
+    shares = []
+    for shape in SSD_BF16_SHAPES:
+        args = ssd_inputs(n, *shape[:6], torch.bfloat16)
+        y, st = ops.ssd_scan(*args, chunk=shape[6])
+        y_r, st_r = ref.ssd_scan_sequential_ref(*args)
+        y_p, st_p = ref.ssd_scan_chunked_ref(*args, chunk=shape[6],
+                                             bf16_points=True)
+        # the cheaper design, one bf16 rounding at each point: measured, not
+        # run on the card
+        y_1, _ = ref.ssd_scan_chunked_ref(*args, chunk=shape[6],
+                                          bf16_points=True, bf16_pairs=False)
+        torch.cuda.synchronize()
+        shares.append({"shape": list(shape),
+                       "kernel": bar_share(y, y_r, SSD_BF16_TOL,
+                                           SSD_BF16_TOL),
+                       "single_rounding_emulation": bar_share(
+                           y_1, y_r, SSD_BF16_TOL, SSD_BF16_TOL)})
+        err_bf16 = max(err_bf16, assert_close(
+            f"ssd_scan{shape} bf16 y", y, y_r, SSD_BF16_TOL, SSD_BF16_TOL),
+            assert_close(f"ssd_scan{shape} bf16 state", st, st_r,
+                         SSD_BF16_TOL, SSD_BF16_TOL))
+        share_bf16 = max(share_bf16, bar_share(y, y_r, SSD_BF16_TOL,
+                                               SSD_BF16_TOL))
+        share_points = max(share_points, bar_share(y, y_p, SSD_POINTS_TOL,
+                                                   SSD_POINTS_TOL))
+        err_points = max(err_points, assert_close(
+            f"ssd_scan{shape} bf16 y vs chunked_ref(bf16_points)", y, y_p,
+            SSD_POINTS_TOL, SSD_POINTS_TOL),
+            assert_close(f"ssd_scan{shape} bf16 state vs chunked_ref"
+                         "(bf16_points)", st, st_p, SSD_POINTS_TOL,
+                         SSD_POINTS_TOL))
+        n += 1
+    shape = SSD_TIMED
     args = ssd_inputs(0, *shape[:6], torch.bfloat16)
-    y, st = ops.ssd_scan(*args, chunk=shape[6])
-    y_r, st_r = ref.ssd_scan_sequential_ref(*args)
-    torch.cuda.synchronize()
-    err_bf16 = max(assert_close("ssd_scan bf16 y", y, y_r, 2e-2, 2e-2),
-                   assert_close("ssd_scan bf16 state", st, st_r, 2e-2, 2e-2))
+    args32 = ssd_inputs(0, *shape[:6])
+    ssd_prof, ssd_launches = profiled(
+        lambda: ops.ssd_scan(*args, chunk=shape[6]),
+        SERVE_KERNEL_NAMES["ssd_scan"])
     recs["ssd_scan"] = {
-        "shape": list(shape), "dtype": "bfloat16", "cases": n + 1,
+        "shape": list(shape), "dtype": "bfloat16", "cases": n,
         "max_abs_err": max(err, err_bf16), "max_abs_err_f32": err,
         "max_abs_err_bf16": err_bf16,
+        "max_abs_err_bf16_vs_chunked_points": err_points,
+        "bf16_y_share_of_bar": share_bf16,
+        "bf16_y_share_of_points_tolerance": share_points,
+        "bf16_y_share_of_bar_by_shape": shares,
+        "cuda_launches_per_call": sum(ssd_launches.values()),
+        "profiler_device_us": ssd_prof,
         "tolerance": "f32 rtol=atol=1e-4 vs ssd_scan_sequential_ref (y and "
-                     "final state), bf16 rtol=atol=2e-2",
+                     "final state), bf16 rtol=atol=2e-2 vs it and 1e-2 vs "
+                     "ssd_scan_chunked_ref(bf16_points=True)",
         "ms": median_ms(lambda: ops.ssd_scan(*args, chunk=shape[6])),
+        "ms_f32": median_ms(lambda: ops.ssd_scan(*args32, chunk=shape[6])),
+        "design": "bf16: three launches, wgmma (tensor cores) fed by TMA, "
+                  "chunks in parallel; float32 (ms_f32, f32 inputs): FMAs on "
+                  "the CUDA cores, one block per (b, h)",
         "plain_ms": median_ms(lambda: ref.ssd_scan_sequential_ref(*args),
                               iters=3, warmup=1, repeats=3),
         "library": None, "library_ms": None,
@@ -629,7 +781,7 @@ def phase_model_kernels():
             x, (d,), w_x, 1e-5)),
         **bound_of(*rms_bound(rows, d, 2))}
     emit("model_kernels", **recs,
-         timing="CUDA events, 5 warm-up + 50 launches (plain: 20, ssd "
+         timing="CUDA events, 5 warm-up + 50 calls (plain: 20, ssd "
                 "plain: 3), median of 5 repeats, inputs L2-warm")
     return recs
 
@@ -944,6 +1096,29 @@ def phase_serve():
         gen_x, tx_pre, tx_dec, _ = greedy(mx, params, tok, SERVE_STEPS,
                                           cfg.vocab_size)
 
+        # prefill wall time, median of 5, and one profiled prefill: device
+        # busy time, the serving kernel's share of it, and the idle share
+        def prefill_ms(model):
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.prefill(params, {"tokens": tok})
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(walls))
+        pre_med, pre_med_x = prefill_ms(mk), prefill_ms(mx)
+        wall, per, _ = device_times(
+            lambda: mk.prefill(params, {"tokens": tok}))
+        busy = sum(per.values()) / 1e3
+        kern = sum(t for k, t in per.items()
+                   if any(part in k for part in SERVE_KERNEL_NAMES[kernel]))
+        profile_rec = {"wall_ms": wall, "device_busy_ms": busy,
+                       "kernel_device_ms": kern / 1e3,
+                       "device_idle_share": 1.0 - busy / wall if per else None,
+                       "note": "one prefill under torch.profiler (its host "
+                               "overhead included in wall_ms)"}
+
         ops.reset_launch_counts()
         rag = prompts(SEED + 1, SERVE_B, RAGGED_S, cfg.vocab_size)
         lk, _ = mk.prefill(params, {"tokens": rag})
@@ -956,11 +1131,13 @@ def phase_serve():
             "param_count": mk.param_count(), "param_bytes": param_bytes,
             "batch": SERVE_B, "prompt": SERVE_S, "decode_steps": SERVE_STEPS,
             "launches": counts[kernel], "f32_parity": parity,
-            "prefill_ms": t_pre * 1e3,
+            "prefill_ms": t_pre * 1e3, "prefill_ms_median5": pre_med,
+            "prefill_profile": profile_rec,
             "prefill_tokens_per_s": SERVE_B * SERVE_S / t_pre,
             "decode_ms_per_step": t_dec * 1e3,
             "decode_tokens_per_s": SERVE_B / t_dec,
             "xla": {"prefill_ms": tx_pre * 1e3,
+                    "prefill_ms_median5": pre_med_x,
                     "decode_ms_per_step": tx_dec * 1e3},
             "greedy_top1_agreement_with_xla": float(
                 (gen_k == gen_x).double().mean()),
@@ -1044,9 +1221,12 @@ def main() -> None:
             "src/repro/kernels/flash_attention.py:29",
             mk["flash_attention"]["tolerance"],
             "qwen2-0.5b impl='flash' prefill, one launch per layer"),
-        row("ssd_scan", mk["ssd_scan"], served["ssd_scan"]["launches"],
-            "src/repro/kernels/ssd_scan.py:25", mk["ssd_scan"]["tolerance"],
-            "mamba2-130m impl='pallas' prefill, one launch per layer"),
+        dict(row("ssd_scan", mk["ssd_scan"], served["ssd_scan"]["launches"],
+                 "src/repro/kernels/ssd_scan.py:25",
+                 mk["ssd_scan"]["tolerance"],
+                 "mamba2-130m impl='pallas' prefill, one call per layer"),
+             cuda_launches_per_call=mk["ssd_scan"][
+                 "cuda_launches_per_call"]),
         row("rmsnorm", mk["rmsnorm"], 0, "src/repro/kernels/rmsnorm.py:20",
             mk["rmsnorm"]["tolerance"],
             "none: no model of either package calls it (library entry "

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc -shared`` per source — all started together — gives
 ``build/repro_torch_kernels/lib<name>-<digest>.so`` in a few seconds.  The
-digest covers the source, the shared header and that source's flags, so an
-edited kernel is rebuilt and an unchanged one is reused.  A failed build raises;
-nothing here falls back to another implementation.
+digest covers the source, every shared header (``csrc/*.cuh``) and that
+source's flags, so an edited kernel is rebuilt and an unchanged one is
+reused.  A failed build raises; nothing here falls back to another
+implementation.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "event_step_launch": [_c_ptr] * 13 + [_c_int, _c_int, _c_ptr],
+    "event_step_launch": [_c_ptr] * 13 + [_c_int] * 4 + [_c_ptr],
     "alloc_active_set_launch": [_c_ptr] * 8 + [_c_int, _c_int, _c_ptr],
     # x, w, y, rows, d, eps, x_dtype, stream
     "rmsnorm_launch": [_c_ptr] * 3 + [_c_int, _c_int, _c_float, _c_int,
@@ -54,8 +55,9 @@ _SIGNATURES = {
     # q, k, v, o, B, S, H, KV, D, scale, causal, dtype, stream
     "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 5
     + [_c_float, _c_int, _c_int, _c_ptr],
-    # x, dt, A, B, C, y, state, cs, b, S, h, g, p, n, chunk, dtype, stream
-    "ssd_scan_launch": [_c_ptr] * 8 + [_c_int] * 8 + [_c_ptr],
+    # x, dt, A, B, C, y, state, cs, delta, totals, in_hi, in_lo,
+    # b, S, h, g, p, px, n, nx, chunk, dtype, stream
+    "ssd_scan_launch": [_c_ptr] * 12 + [_c_int] * 10 + [_c_ptr],
 }
 
 
@@ -84,7 +86,9 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

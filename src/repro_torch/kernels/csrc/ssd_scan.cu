@@ -11,23 +11,50 @@
 //          + exp(csum_t) (C_t . state)                             (carried)
 //   state' = exp(csum_l) state + sum_t exp(csum_l - csum_t) dt_t x_t (x) B_t
 //
-// Design for Hopper: one 256-thread block per (batch, head) loops over the
-// chunks in order with the state in shared memory (stored [n][p], 32 KB at
-// p = 64, n = 128).  The [l, l] decay-score matrix (256 KB at l = 256) is
-// never materialised: the chunk is walked in 64-row tiles of t and, inside
-// each, 64-column tiles of s up to the diagonal; a 64 x 64 score tile goes
-// through shared memory between the two products.  exp(csum_t - csum_s) is
-// evaluated only where t >= s — above the diagonal the exponent is positive
-// and can overflow, and the reference selects 0 there.  Any chunk length
-// works (mamba2's 300-token prompt runs as one chunk of 300); csum lives in a
-// float32 scratch row per (batch, head) that the wrapper allocates.  The
-// g -> h group repeat is index arithmetic (head h reads group h / (h/g)),
-// never a copy.  All products are float32 FMAs on the CUDA cores (the
-// tolerance against the sequential recurrence is 1e-4, so no TF32).  The
-// kernel is bound by operations (4.0 GFLOP of float32 at mamba2's B = 4,
-// S = 512, bf16 inputs, against 16.9 MB).  Each thread owns a 4 x 4 patch of a score tile
-// and of the output tile, and 8 x 4 elements of the state update.
-#include "common.cuh"
+// The element type decides the design — a contract of the function, not a
+// fallback:
+//
+// float32 (held to 1e-4 against the sequential recurrence, which TF32 cannot
+// meet): one 256-thread block per (batch, head) loops over the chunks in
+// order with the state in shared memory (stored [n][p], 32 KB at p = 64,
+// n = 128).  The [l, l] decay-score matrix (256 KB at l = 256) is never
+// materialised: the chunk is walked in 64-row tiles of t and, inside each,
+// 64-column tiles of s up to the diagonal; a 64 x 64 score tile goes through
+// shared memory between the two products.  exp(csum_t - csum_s) is evaluated
+// only where t >= s — above the diagonal the exponent is positive and can
+// overflow, and the reference selects 0 there.  Any chunk length works;
+// csum lives in a float32 scratch row per (batch, head) that the wrapper
+// allocates.  The g -> h group repeat is index arithmetic (head h reads group
+// h / (h/g)), never a copy.  All products are float32 FMAs on the CUDA cores.
+// Each thread owns a 4 x 4 patch of a score tile and of the output tile, and
+// 8 x 4 elements of the state update.
+//
+// bfloat16 (the served dtype): the state-passing form, chunks in parallel,
+// every product on the tensor cores (wgmma, bf16 in, f32 accumulate), three
+// launches:
+//   (i)   ssd_state_kernel, one warpgroup per (b*h, chunk): the chunk's
+//         cumsum and its own state delta = w^T B (M = p, N = n, K = l);
+//   (ii)  ssd_pass_kernel, eight blocks per (b, h): in_{c+1} =
+//         exp(total_c) in_c + delta_c in float32, elementwise — the only
+//         sequential step, 32 KB a chunk;
+//   (iii) ssd_out_kernel, one warpgroup per (64-row t tile, chunk, b*h) — 768
+//         at mamba2's (4, 512, 24, 64, 128, chunk 256): (C B^T) masked and
+//         decayed in registers, times x, plus exp(csum) C in_c^T.
+// Tiles arrive by TMA over 4-D maps [b, S, h|g, p|n] (zero fill past S and
+// past p / n inside the padded 64 x 128 tile), in two-stage rings.  The
+// bf16 bar against the sequential recurrence (2e-2) does not survive single
+// bf16 roundings of the kernel's float32 intermediates: the masked scores
+// spread as sqrt(n) ~ 11 at n = 128, and a rounding of each, summed over a
+// chunk, moves a small output by more than the bar's atol.  So every
+// intermediate operand is carried as a pair of bf16 (hi = bf16(v),
+// lo = bf16(v - hi): ~16 significant bits) and multiplied twice —
+// w = exp(total - csum) dt x, the masked scores with dt
+// folded in, M' = (C B^T) exp(csum_t - csum_s) dt_s, and in_c — while x, B
+// and C enter as they are stored.  ref.ssd_scan_chunked_ref(bf16_points=True)
+// rounds at exactly these points.  At mamba2's shape the work is 4.0 GFLOP
+// and 16.9 MB: bound by bytes (5.0 us), the paired operands double the
+// tensor-core work to ~8 GFLOP (8 us at peak).
+#include "hopper.cuh"
 #include <math.h>
 
 namespace {
@@ -296,34 +323,502 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* Bm, const void* Cm, void* y, float* state,
-                   float* cs, int b, int S, int h, int g, int p, int n,
-                   int chunk, cudaStream_t st) {
+// --------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma) fed by TMA, chunks in parallel
+// --------------------------------------------------------------------------
+constexpr int TC_THREADS = 128;   // one warpgroup
+constexpr int TILE = 64;          // rows (positions) per tile
+constexpr int PT = 64;            // head dim p, padded: the M / N of wgmma
+constexpr int NT = 128;           // state dim n, padded
+constexpr int XB = PT * TILE * 2; // one x tile (a 64-column box): 8 KB
+constexpr int BB = NT * TILE * 2; // one B / C / state tile (two boxes): 16 KB
+constexpr float LOG2E = 1.4426950408889634f;
+
+// smem of the chunk-state kernel: two stages of {x -> w_hi, w_lo, B}
+constexpr int STATE_STAGE = 2 * XB + BB;
+constexpr int STATE_SMEM = 2 * STATE_STAGE + 1024 + 64;
+// smem of the output kernel: C, then two stages of {B, x}, where in_hi and
+// in_lo occupy stage 1 (and 8 KB past it) until the carried-state product
+// is done — 74 KB, so that three CTAs fit on an SM
+constexpr int OUT_STAGE = BB + XB;
+constexpr int OUT_SMEM = BB + OUT_STAGE + 2 * BB + 1024 + 64;
+
+// (a, b) as two packed bf16 pairs, hi = bf16(v) and lo = bf16(v - hi): each
+// float is hi + lo to about 16 significant bits
+__device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+    const __nv_bfloat162 l2 = __floats2bfloat162_rn(
+        a - __low2float(h2), b - __high2float(h2));
+    hi = *reinterpret_cast<const uint32_t*>(&h2);
+    lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// (i) one warpgroup per (b*h, chunk): the chunk's cumsum (to cs and total)
+// and its own state delta[p, n] = sum_s w_s (x) B_s, w_s = fac_s x_s with
+// fac_s = exp(total - csum_s) dt_s, as wgmma M = p, N = n, K = s: w is
+// written as hi / lo bf16 tiles over the landed x tile (MN-major A: the
+// transpose bit), B is the MN-major B operand as it lands.
+__global__ void __launch_bounds__(TC_THREADS)
+ssd_state_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const bf16* __restrict__ dt, const bf16* __restrict__ A,
+                 float* __restrict__ cs, float* __restrict__ totals,
+                 float* __restrict__ delta, int S, int h, int g, int chunk) {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    uint8_t* gbase = smem_raw + (base - raw);        // generic view of base
+    const uint32_t bar = base + 2 * STATE_STAGE;     // bar, bar + 8: stages
+    __shared__ float fac[2][TILE];                   // per tile, double-buffered
+    __shared__ float s_warp[TC_THREADS / 32];
+    __shared__ float s_total;
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int gr = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.x, c = blockIdx.y;
+    const int bi = bh / h, hi = bh % h, gi = hi / (h / g);
+    const int c0 = c * chunk;
+    const int l = chunk < S - c0 ? chunk : S - c0;
+    const int n_s = (l + TILE - 1) / TILE;
+    const int nc = gridDim.y;
+    float* csr = cs + static_cast<size_t>(bh) * S;
+    auto dt_at = [&](int t) {
+        return to_f32(dt[(static_cast<size_t>(bi) * S + t) * h + hi]);
+    };
+
+    if (tid == 0) {
+        mbar_init(bar, 1);
+        mbar_init(bar + 8, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(bar, XB + BB);
+        tma_tile<64>(&map_x, base, bar, hi, c0, bi);
+        tma_tile<128>(&map_b, base + 2 * XB, bar, gi, c0, bi);
+    }
+
+    // csum over the chunk, 128 positions at a time: four warp scans joined
+    // through shared memory; the thread at position l - 1 holds the total
+    const float Af = to_f32(A[hi]);
+    float carry = 0.0f;
+    for (int seg = 0; seg < l; seg += TC_THREADS) {
+        const int t = seg + tid;
+        float v = t < l ? dt_at(c0 + t) * Af : 0.0f;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const float u = __shfl_up_sync(FULL_WARP, v, off);
+            if (lane >= off) v += u;
+        }
+        if (lane == 31) s_warp[warp] = v;
+        __syncthreads();
+        float prev = carry;
+        for (int w = 0; w < warp; ++w) prev += s_warp[w];
+        v += prev;
+        if (t < l) csr[c0 + t] = v;
+        if (t == l - 1) {
+            s_total = v;
+            totals[static_cast<size_t>(bh) * nc + c] = v;
+        }
+        for (int w = 0; w < TC_THREADS / 32; ++w) carry += s_warp[w];
+        __syncthreads();                                 // s_warp is reused
+    }
+    const float total = s_total;
+
+    // the weights fac_s of tile j's rows; rows past the chunk (the next
+    // chunk's) weigh 0
+    auto weights = [&](int j) {
+        if (tid < TILE) {
+            const int s = j * TILE + tid;
+            fac[j & 1][tid] = s < l
+                ? expf(total - csr[c0 + s]) * dt_at(c0 + s) : 0.0f;
+        }
+    };
+    weights(0);
+    __syncthreads();
+
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+
+    for (int j = 0; j < n_s; ++j) {
+        const int st = j & 1;
+        const uint32_t sW = base + st * STATE_STAGE;     // x, then w_hi
+        const uint32_t sL = sW + XB;                     // w_lo
+        const uint32_t sB = sW + 2 * XB;
+        if (tid == 0 && j + 1 < n_s) {
+            // the other stage was released by the barrier that ended j - 1
+            const uint32_t nW = base + (1 - st) * STATE_STAGE;
+            const uint32_t nbar = bar + 8 * (1 - st);
+            mbar_expect_tx(nbar, XB + BB);
+            tma_tile<64>(&map_x, nW, nbar, hi, c0 + (j + 1) * TILE, bi);
+            tma_tile<128>(&map_b, nW + 2 * XB, nbar, gi, c0 + (j + 1) * TILE,
+                          bi);
+        }
+        mbar_wait(bar + 8 * st, (j >> 1) & 1);
+
+        // w = fac * x as hi / lo, in the landed tile's swizzled layout (the
+        // swizzle permutes 16-byte pieces within a row: row = piece / 8)
+        uint8_t* gW = gbase + (sW - base);
+        uint8_t* gL = gbase + (sL - base);
+#pragma unroll
+        for (int k = 0; k < XB / 16 / TC_THREADS; ++k) {
+            const int q = tid + k * TC_THREADS;
+            const float f = fac[st][q >> 3];
+            uint4 v = *reinterpret_cast<const uint4*>(gW + q * 16);
+            uint4 lo;
+            uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+            uint32_t* lw = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const __nv_bfloat162 x2 =
+                    *reinterpret_cast<const __nv_bfloat162*>(&vw[e]);
+                split_pack(__bfloat162float(x2.x) * f,
+                           __bfloat162float(x2.y) * f, vw[e], lw[e]);
+            }
+            *reinterpret_cast<uint4*>(gW + q * 16) = v;
+            *reinterpret_cast<uint4*>(gL + q * 16) = lo;
+        }
+        fence_proxy_async();
+        __syncthreads();
+
+        // delta += w_hi^T B + w_lo^T B over this tile's 64 positions
+        fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+            const uint64_t db = make_desc(sB + kk * 16 * 128, 8192, 1024, 1);
+            wgmma_ss_n128_mn(d, make_desc(sW + kk * 16 * 128, 8192, 1024, 1),
+                             db);
+            wgmma_ss_n128_mn(d, make_desc(sL + kk * 16 * 128, 8192, 1024, 1),
+                             db);
+        }
+        wgmma_commit();
+        if (j + 1 < n_s) weights(j + 1);   // while the products run
+        wgmma_wait_all();
+        fence_regs(d);
+        __syncthreads();               // stage st is free for tile j + 2
+    }
+
+    // d[4c + e]: row 16 warp + gr (+ 8 if e & 2), column 8c + 2 t4 + (e & 1)
+    float* out = delta + (static_cast<size_t>(bh) * nc + c) * PT * NT;
+    const int r0 = 16 * warp + gr;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+        const int col = 8 * q + 2 * t4;
+        *reinterpret_cast<float2*>(out + r0 * NT + col) =
+            make_float2(d[4 * q], d[4 * q + 1]);
+        *reinterpret_cast<float2*>(out + (r0 + 8) * NT + col) =
+            make_float2(d[4 * q + 2], d[4 * q + 3]);
+    }
+}
+
+// (ii) per (b, h): in_0 = 0, in_{c+1} = exp(total_c) in_c + delta_c in
+// float32, elementwise, so the [p, n] state is split over PASS_SPLIT blocks
+// of one float4 a thread; each in_c is stored as hi / lo bf16 [p, n] tiles
+// (the padded 64 x 128 layout the output kernel loads), the last state as
+// float32.
+constexpr int PASS_THREADS = 256;
+constexpr int PASS_SPLIT = PT * NT / 4 / PASS_THREADS;   // 8
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_pass_kernel(const float* __restrict__ delta,
+                const float* __restrict__ totals, bf16* __restrict__ in_hi,
+                bf16* __restrict__ in_lo, float* __restrict__ state_out,
+                int nc, int p, int n) {
+    const int bh = blockIdx.x;
+    const int idx = 4 * (blockIdx.y * PASS_THREADS + threadIdx.x);
+    const size_t first = static_cast<size_t>(bh) * nc;   // tile of chunk 0
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 dl = *reinterpret_cast<const float4*>(delta + first * PT * NT + idx);
+    float tot = totals[first];
+    for (int c = 0; c < nc; ++c) {
+        const size_t tile = (first + c) * PT * NT;
+        const float4 d_c = dl;
+        const float e = expf(tot);
+        if (c + 1 < nc) {              // the next chunk's loads, issued early
+            dl = *reinterpret_cast<const float4*>(delta + tile + PT * NT + idx);
+            tot = totals[first + c + 1];
+        }
+        uint32_t h01, l01, h23, l23;
+        split_pack(v.x, v.y, h01, l01);
+        split_pack(v.z, v.w, h23, l23);
+        *reinterpret_cast<uint2*>(in_hi + tile + idx) = make_uint2(h01, h23);
+        *reinterpret_cast<uint2*>(in_lo + tile + idx) = make_uint2(l01, l23);
+        v = make_float4(v.x * e + d_c.x, v.y * e + d_c.y, v.z * e + d_c.z,
+                        v.w * e + d_c.w);
+    }
+    const int pp = idx / NT, nn = idx % NT;
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    float* st = state_out + static_cast<size_t>(bh) * p * n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        if (pp < p && nn + i < n) st[pp * n + nn + i] = f[i];
+}
+
+// (iii) one warpgroup per (64-row t tile, chunk, b*h):
+//   y_t = sum_{s <= t} M'_ts x_s + exp(csum_t) (C_t . in_c)
+// with M'_ts = (C_t . B_s) exp(csum_t - csum_s) dt_s.  C B^T and C in^T are
+// ss-wgmma (K = n, both K-major, flash's Q K^T at D = 128); M' goes from the
+// score accumulator to hi / lo bf16 A fragments and meets the landed x tile
+// (MN-major, flash's V) in two rs-wgmma.  exp only on and below the
+// diagonal; rows past the chunk are masked and not stored.
+__global__ void __launch_bounds__(TC_THREADS)
+ssd_out_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_b,
+               const __grid_constant__ CUtensorMap map_c,
+               const __grid_constant__ CUtensorMap map_hi,
+               const __grid_constant__ CUtensorMap map_lo,
+               const bf16* __restrict__ dt, const float* __restrict__ cs,
+               bf16* __restrict__ y, int S, int h, int g, int p, int chunk) {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t sC = base;
+    const uint32_t sStage = base + BB;               // + st * OUT_STAGE
+    const uint32_t sHi = sStage + OUT_STAGE, sLo = sHi + BB;
+    const uint32_t bar0 = sLo + BB;                  // C / in; + 8 (1 + st)
+    __shared__ float csc[2][TILE], dtc[2][TILE];      // per tile, double-buffered
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int gr = lane >> 2, t4 = lane & 3;
+    const int tt = gridDim.x - 1 - blockIdx.x;       // longest tiles first
+    const int c = blockIdx.y, bh = blockIdx.z;
+    const int nc = gridDim.y;
+    const int bi = bh / h, hi = bh % h, gi = hi / (h / g);
+    const int c0 = c * chunk;
+    const int l = chunk < S - c0 ? chunk : S - c0;
+    const int t0 = tt * TILE;
+    if (t0 >= l) return;                             // the last chunk is short
+    const float* csr = cs + static_cast<size_t>(bh) * S + c0;
+
+    if (tid == 0) {
+        mbar_init(bar0, 1);
+        mbar_init(bar0 + 8, 1);
+        mbar_init(bar0 + 16, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        const int in_row = bh * nc + c;
+        mbar_expect_tx(bar0, 3 * BB);
+        tma_tile<128>(&map_c, sC, bar0, gi, c0 + t0, bi);
+        tma_tile<128>(&map_hi, sHi, bar0, 0, 0, in_row);
+        tma_tile<128>(&map_lo, sLo, bar0, 0, 0, in_row);
+        mbar_expect_tx(bar0 + 8, OUT_STAGE);
+        tma_tile<128>(&map_b, sStage, bar0 + 8, gi, c0, bi);
+        tma_tile<64>(&map_x, sStage + BB, bar0 + 8, hi, c0, bi);
+    }
+
+    // this thread's rows of the tile: t0 + 16 warp + gr and + 8
+    const int tl0 = t0 + 16 * warp + gr, tl1 = tl0 + 8;
+    const float cl0 = tl0 < l ? csr[tl0] * LOG2E : 0.0f;
+    const float cl1 = tl1 < l ? csr[tl1] * LOG2E : 0.0f;
+
+    // carried state: off = C in_hi^T + C in_lo^T (N = p, K = n)
+    float off[32], acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) off[i] = acc[i] = 0.0f;
+    mbar_wait(bar0, 0);
+    fence_regs(off);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 16; ++kk) {
+        const int col = kk * 16;
+        const uint32_t o = (col / 64) * 8192 + (col % 64) * 2;
+        const uint64_t da = make_desc(sC + o, 16, 1024, 1);
+        wgmma_ss_n64(off, da, make_desc(sHi + o, 16, 1024, 1), 1);
+        wgmma_ss_n64(off, da, make_desc(sLo + o, 16, 1024, 1), 1);
+    }
+    wgmma_commit();
+
+    // csum (in log2 units) and dt of tile j's keys; keys past the chunk are
+    // masked and read as 0
+    auto keys = [&](int j) {
+        if (tid < TILE) {
+            const int s = j * TILE + tid;
+            const bool in = s < l;
+            csc[j & 1][tid] = in ? csr[s] * LOG2E : 0.0f;
+            dtc[j & 1][tid] = in
+                ? to_f32(dt[(static_cast<size_t>(bi) * S + c0 + s) * h + hi])
+                : 0.0f;
+        }
+    };
+    keys(0);
+    wgmma_wait_all();
+    fence_regs(off);
+    __syncthreads();                   // in_hi / in_lo are read: stage 1 free
+
+    for (int j = 0; j <= tt; ++j) {
+        const int st = j & 1;
+        const uint32_t sB = sStage + st * OUT_STAGE, sX = sB + BB;
+        if (tid == 0 && j + 1 <= tt) {
+            const uint32_t nB = sStage + (1 - st) * OUT_STAGE;
+            const uint32_t nbar = bar0 + 8 * (2 - st);
+            mbar_expect_tx(nbar, OUT_STAGE);
+            tma_tile<128>(&map_b, nB, nbar, gi, c0 + (j + 1) * TILE, bi);
+            tma_tile<64>(&map_x, nB + BB, nbar, hi, c0 + (j + 1) * TILE, bi);
+        }
+        mbar_wait(bar0 + 8 * (1 + st), (j >> 1) & 1);
+
+        // scores C_t . B_s over the state dim: 8 steps of k16
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NT / 16; ++kk) {
+            const int col = kk * 16;
+            const uint32_t o = (col / 64) * 8192 + (col % 64) * 2;
+            wgmma_ss_n64(sc, make_desc(sC + o, 16, 1024, 1),
+                         make_desc(sB + o, 16, 1024, 1), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // M' = score * 2^(csum_t - csum_s) dt_s where s <= t < l, else 0;
+        // sc[4q + e] is row (e & 2 ? tl1 : tl0), key 8q + 2 t4 + (e & 1)
+        const bool diag = j == tt;
+        uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+                const int tl = (e & 2) ? tl1 : tl0;
+                const float cl = (e & 2) ? cl1 : cl0;
+                float m[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    const int sl = 8 * q + 2 * t4 + u;
+                    const bool keep = tl < l && (!diag || j * TILE + sl <= tl);
+                    m[u] = keep ? sc[4 * q + e + u] * ex2(cl - csc[st][sl])
+                                      * dtc[st][sl]
+                                : 0.0f;
+                }
+                // A fragment k step q / 2: registers (q & 1) * 2 + (e >> 1)
+                split_pack(m[0], m[1], ph[q >> 1][(q & 1) * 2 + (e >> 1)],
+                           pl[q >> 1][(q & 1) * 2 + (e >> 1)]);
+            }
+        }
+
+        // acc += M'_hi x + M'_lo x over this tile's 64 keys
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t db = make_desc(sX + kk * 16 * 128, 8192, 1024, 1);
+            wgmma_rs_n64(acc, ph[kk], db);
+            wgmma_rs_n64(acc, pl[kk], db);
+        }
+        wgmma_commit();
+        if (j + 1 <= tt) keys(j + 1);  // while the products run
+        wgmma_wait_all();
+        fence_regs(acc);
+        __syncthreads();               // stage st and keys[st] are free
+    }
+
+    // y = acc + 2^(csum_t log2 e) off, rows < l, columns < p
+    const size_t row_stride = static_cast<size_t>(h) * p;
+    const float e0 = ex2(cl0), e1 = ex2(cl1);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        const int col = 8 * q + 2 * t4;
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+            const int tl = (e & 2) ? tl1 : tl0;
+            if (tl >= l) continue;
+            const float ee = (e & 2) ? e1 : e0;
+            bf16* dst = y + (static_cast<size_t>(bi) * S + c0 + tl) * row_stride
+                        + static_cast<size_t>(hi) * p + col;
+            const float v0 = acc[4 * q + e] + ee * off[4 * q + e];
+            const float v1 = acc[4 * q + e + 1] + ee * off[4 * q + e + 1];
+            if (col + 1 < p && (p & 1) == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(dst) =
+                    __floats2bfloat162_rn(v0, v1);
+            } else {
+                if (col < p) dst[0] = __float2bfloat16_rn(v0);
+                if (col + 1 < p) dst[1] = __float2bfloat16_rn(v1);
+            }
+        }
+    }
+}
+
+cudaError_t launch_tc(const void* x, const void* dt, const void* A,
+                      const void* Bm, const void* Cm, void* y, float* state,
+                      float* cs, float* delta, float* totals, void* in_hi,
+                      void* in_lo, int b, int S, int h, int g, int p, int px,
+                      int n, int nx, int chunk, cudaStream_t st) {
+    const int nc = (S + chunk - 1) / chunk;
+    const int n_tt = ((chunk < S ? chunk : S) + TILE - 1) / TILE;
+    if (nc > 65535 || b * h > 65535 || n_tt > 65535)
+        return cudaErrorInvalidValue;
+    CUtensorMap mx, mb, mc, mhi, mlo;
+    if (!make_map<64>(&mx, x, b, S, h, px) || !make_map<128>(&mb, Bm, b, S, g, nx)
+        || !make_map<128>(&mc, Cm, b, S, g, nx)
+        || !make_map<128>(&mhi, in_hi, b * h * nc, PT, 1)
+        || !make_map<128>(&mlo, in_lo, b * h * nc, PT, 1))
+        return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        STATE_SMEM);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(ssd_out_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             OUT_SMEM);
+    if (e != cudaSuccess) return e;
+    const bf16* dtb = static_cast<const bf16*>(dt);
+    ssd_state_kernel<<<dim3(b * h, nc), TC_THREADS, STATE_SMEM, st>>>(
+        mx, mb, dtb, static_cast<const bf16*>(A), cs, totals, delta, S, h, g,
+        chunk);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    ssd_pass_kernel<<<dim3(b * h, PASS_SPLIT), PASS_THREADS, 0, st>>>(
+        delta, totals, static_cast<bf16*>(in_hi), static_cast<bf16*>(in_lo),
+        state, nc, p, n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    ssd_out_kernel<<<dim3(n_tt, nc, b * h), TC_THREADS, OUT_SMEM, st>>>(
+        mx, mb, mc, mhi, mlo, dtb, cs, static_cast<bf16*>(y), S, h, g, p,
+        chunk);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* x, const void* dt, const void* A,
+                       const void* Bm, const void* Cm, void* y, float* state,
+                       float* cs, int b, int S, int h, int g, int p, int n,
+                       int chunk, cudaStream_t st) {
     const int bytes = smem_floats(p, n) * static_cast<int>(sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        ssd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return e;
-    ssd_kernel<T><<<b * h, THREADS, bytes, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dt),
-        static_cast<const T*>(A), static_cast<const T*>(Bm),
-        static_cast<const T*>(Cm), static_cast<T*>(y), state, cs, S, h, g,
-        p, n, chunk);
+    ssd_kernel<float><<<b * h, THREADS, bytes, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(A), static_cast<const float*>(Bm),
+        static_cast<const float*>(Cm), static_cast<float*>(y), state, cs, S,
+        h, g, p, n, chunk);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: [b, S, h, p]; dt: [b, S, h]; A: [h]; Bm, Cm: [b, S, g, n]; all
-// contiguous and of one dtype (DTYPE_F32 or DTYPE_BF16).  state: [b, h, p, n]
-// float32; cs: [b * h, S] float32 scratch.  p <= 64, n <= 128, h a multiple
-// of g, 1 <= chunk.  Launches on `stream`, never synchronises; returns the
-// launch's cudaError_t (0 on success).
+// contiguous and of one dtype.  state: [b, h, p, n] float32; cs: [b * h, S]
+// float32 scratch.  p <= 64, n <= 128, h a multiple of g, 1 <= chunk.
+// DTYPE_F32 ignores the rest.  DTYPE_BF16: x's rows are px >= p elements
+// long and B's / C's nx >= n (multiples of 8; the wrapper zero-pads), x, B,
+// C 16-byte aligned; with nc = ceil(S / chunk) chunks, delta is
+// [b * h * nc, 64, 128] float32, totals [b * h * nc] float32, in_hi and
+// in_lo [b * h * nc, 64, 128] bf16 scratch.  Launches on `stream` (one
+// kernel for float32, three for bfloat16), never synchronises; returns the
+// first launch error (0 on success).
 REPRO_EXPORT int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                  const void* Bm, const void* Cm, void* y,
-                                 void* state, void* cs, int b, int S, int h,
-                                 int g, int p, int n, int chunk, int dtype,
+                                 void* state, void* cs, void* delta,
+                                 void* totals, void* in_hi, void* in_lo,
+                                 int b, int S, int h, int g, int p, int px,
+                                 int n, int nx, int chunk, int dtype,
                                  void* stream) {
     if (b <= 0 || S <= 0 || h <= 0 || g <= 0 || h % g != 0 || p <= 0
             || p > MAX_P || n <= 0 || n > MAX_N || chunk <= 0)
@@ -331,14 +826,20 @@ REPRO_EXPORT int ssd_scan_launch(const void* x, const void* dt, const void* A,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* state_f = static_cast<float*>(state);
     float* cs_f = static_cast<float*>(cs);
-    cudaError_t err = cudaErrorInvalidValue;
     if (dtype == DTYPE_F32)
-        err = launch<float>(x, dt, A, Bm, Cm, y, state_f, cs_f, b, S, h, g,
-                            p, n, chunk, st);
-    else if (dtype == DTYPE_BF16)
-        err = launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, state_f, cs_f, b, S,
-                                    h, g, p, n, chunk, st);
-    return static_cast<int>(err);
+        return static_cast<int>(launch_f32(x, dt, A, Bm, Cm, y, state_f, cs_f,
+                                           b, S, h, g, p, n, chunk, st));
+    if (dtype != DTYPE_BF16 || px < p || px > PT || px % 8 != 0 || nx < n
+            || nx > NT || nx % 8 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bm)
+         | reinterpret_cast<uintptr_t>(Cm) | reinterpret_cast<uintptr_t>(in_hi)
+         | reinterpret_cast<uintptr_t>(in_lo)) & 15)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    return static_cast<int>(launch_tc(
+        x, dt, A, Bm, Cm, y, state_f, cs_f, static_cast<float*>(delta),
+        static_cast<float*>(totals), in_hi, in_lo, b, S, h, g, p, px, n, nx,
+        chunk, st));
 }
 
 REPRO_EXPORT const char* ssd_scan_error_string(int code) {

@@ -4,14 +4,50 @@ Twin of the reference's ``kernels/event_step.py`` (a Pallas TPU kernel, one
 grid row per replica): one launch moves the whole ``[B, S]`` block of a
 ``Simulator.run_batch`` tick — per-row completion scan (masked min +
 first-index argmin) fused with the advance-to-next-event update.  The kernel
-is ``csrc/event_step.cu``; this module is its launcher.  The plain version
-is :func:`repro_torch.kernels.ref.event_step_ref`.
+is ``csrc/event_step.cu``: each row is split across a thread-block cluster,
+one lane per thread held in registers across both phases
+(:func:`event_step_geometry` chooses the split).  This module is its
+launcher.  The plain version is :func:`repro_torch.kernels.ref.event_step_ref`.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+
+MAX_CLUSTER = 8          # the portable thread-block cluster size
+MAX_THREADS = 1024       # threads per CTA
+H100_SMS = 132
+
+
+class Geometry(NamedTuple):
+    cluster: int         # CTAs per replica row
+    threads: int         # threads per CTA, a multiple of 32
+
+
+def event_step_geometry(B: int, S: int, sms: int = H100_SMS) -> Geometry:
+    """How the kernel splits a ``[B, S]`` block: each row takes a cluster
+    of ``c`` CTAs — as many as keep the B clusters within the card's
+    ``sms`` SMs, at most 8, and no more than the row has 32-lane warps —
+    and each CTA is wide enough to give every lane of the row one thread,
+    up to 1024 threads.  Thread ``tid`` of CTA ``rank`` holds lane
+    ``rank * threads + tid`` in registers; lanes past ``c * threads`` go to
+    a strided loop, ``c * threads`` apart.  At ``[32, 1440]`` on 132 SMs:
+    4 CTAs of 384 threads per row, 128 CTAs."""
+    if B < 1 or S < 1:
+        raise ValueError(f"event_step_geometry: B={B}, S={S} must be >= 1")
+    warps = -(-S // 32)
+    c = max(1, min(MAX_CLUSTER, sms // B, warps))
+    threads = min(MAX_THREADS, 32 * -(-warps // c))
+    return Geometry(c, threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def event_step_cuda(rem_g: torch.Tensor, rem_c: torch.Tensor,
@@ -21,12 +57,14 @@ def event_step_cuda(rem_g: torch.Tensor, rem_c: torch.Tensor,
     """Launch the kernel on the current stream of the inputs' device.
 
     Inputs are checked by :func:`repro_torch.kernels.ops.event_step`
-    (contiguous, one CUDA device, f64 / bool).  Allocates the five outputs,
+    (contiguous, one CUDA device, f64 / bool); the split is
+    :func:`event_step_geometry` on this card.  Allocates the five outputs,
     does not synchronise.  Returns ``(rem_g', rem_c', started bool,
     t_comp, sid int32)``.
     """
     B, S = rem_g.shape
     dev = rem_g.device
+    geom = event_step_geometry(B, S, _sm_count(dev.index))
     rg_out = torch.empty_like(rem_g)
     rc_out = torch.empty_like(rem_c)
     started = torch.empty((B, S), dtype=torch.uint8, device=dev)
@@ -39,6 +77,6 @@ def event_step_cuda(rem_g: torch.Tensor, rem_c: torch.Tensor,
             alloc_c.data_ptr(), avail.view(torch.uint8).data_ptr(),
             t.data_ptr(), t_ev.data_ptr(), live.view(torch.uint8).data_ptr(),
             rg_out.data_ptr(), rc_out.data_ptr(), started.data_ptr(),
-            t_comp.data_ptr(), sid.data_ptr(), B, S,
-            torch.cuda.current_stream(dev).cuda_stream)
+            t_comp.data_ptr(), sid.data_ptr(), B, S, geom.cluster,
+            geom.threads, torch.cuda.current_stream(dev).cuda_stream)
     return rg_out, rc_out, started.view(torch.bool), t_comp, sid

@@ -214,6 +214,74 @@ def ssd_scan_sequential_ref(x: torch.Tensor, dt: torch.Tensor,
     return y, state.to(x.dtype)
 
 
+def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, chunk: int,
+                         bf16_points: bool = False, bf16_pairs: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b,s,h,p]; dt [b,s,h]; A [h]; B,C [b,s,g,n] -> (y, final_state),
+    by the SSD state-passing decomposition (arXiv:2405.21060 §6) in float32,
+    chunk by chunk (the last chunk may be shorter):
+
+    (i)   csum = cumsum(dt A) over the chunk, total = its last value, and the
+          chunk's own state ``delta = sum_t w_t (x) B_t`` with
+          ``w_t = exp(total - csum_t) dt_t x_t``;
+    (ii)  state passing: ``in_{c+1} = exp(total_c) in_c + delta_c``;
+    (iii) ``y = ((C B^T) * L)(dt x) + exp(csum) (C in_c^T)`` with
+          ``L = exp(csum_t - csum_s)`` on and below the diagonal, 0 above
+          it (never evaluated there).
+
+    ``bf16_points=True`` rounds where the bf16 tensor-core kernel
+    (``csrc/ssd_scan.cu``) rounds: it multiplies ``w``, the masked scores
+    with ``dt`` folded in, ``M' = ((C B^T) * L) dt_s``, and ``in_c`` as
+    pairs of bfloat16 (``hi = bf16(v)``, ``lo = bf16(v - hi)``) with ``B``,
+    ``C`` and ``x`` as given; the algebra is the same as the default's.
+    ``bf16_pairs=False`` keeps only ``hi`` at those points: one bf16
+    rounding each, the cheaper design that misses the 2e-2 bar and that
+    ``chip_smoke.py`` measures beside the kernel's.
+    ``y`` and the state come back in ``x``'s dtype.  The plain form of the
+    kernel's algorithm, for tests and for checks on the card; the model
+    path never calls it.
+    """
+    b, s, h, p = x.shape
+    rep = h // B.shape[2]
+    Bh = B.repeat_interleave(rep, dim=2).float()            # [b,s,h,n]
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+
+    def pair(t: torch.Tensor) -> torch.Tensor:
+        if not bf16_points:
+            return t
+        hi = t.bfloat16().float()
+        return hi + (t - hi).bfloat16().float() if bf16_pairs else hi
+
+    state = torch.zeros((b, h, p, Bh.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        xs, dts, Bs, Cs = xf[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl]
+        cs = torch.cumsum(dts * Af, dim=1)                  # [b,l,h]
+        total = cs[:, -1]                                   # [b,h]
+        # (i) the chunk's own state
+        w = pair(xs * (torch.exp(total[:, None] - cs) * dts)[..., None])
+        delta = torch.einsum("blhp,blhn->bhpn", w, Bs)
+        # (iii) outputs: intra-chunk, then the carried state
+        csh = cs.permute(0, 2, 1)                           # [b,h,l]
+        tri = torch.ones(csh.shape[-1], csh.shape[-1], dtype=torch.bool,
+                         device=x.device).tril()
+        decay = torch.exp(torch.where(
+            tri, csh[..., :, None] - csh[..., None, :], torch.zeros(())))
+        scores = torch.einsum("bthn,bshn->bhts", Cs, Bs)
+        M = pair(torch.where(tri, scores * decay * dts.permute(0, 2, 1)[
+            :, :, None, :], torch.zeros(())))
+        y_in = torch.einsum("bhts,bshp->bthp", M, xs)
+        y_off = torch.einsum("bthn,bhpn->bthp", Cs, pair(state))
+        ys.append(y_in + y_off * torch.exp(cs)[..., None])
+        # (ii) state passing
+        state = state * torch.exp(total)[..., None, None] + delta
+    return torch.cat(ys, dim=1).to(x.dtype), state.to(x.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """x [..., d]; weight [d] — fp32 statistics, cast back to x.dtype."""

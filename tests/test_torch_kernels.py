@@ -25,6 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.core.allocator_np import solve_resource_np
 from repro.kernels import event_core as ref_event_core
@@ -35,6 +37,8 @@ from repro.models.ssm import ssd_scan_ref as ref_model_ssd
 from repro.sim.event_core import NumpyBatchedEventCore
 from repro_torch import convert
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.event_step import (MAX_CLUSTER, MAX_THREADS,
+                                            event_step_geometry)
 from repro_torch.models.ssm import ssd_scan_ref as port_model_ssd
 
 INF = float("inf")
@@ -165,6 +169,48 @@ def test_solo_pair_matches_batched_row(seed):
     assert np.array_equal(rg1.numpy(), rg[0])
     assert np.array_equal(rc1.numpy(), rc[0])
     assert np.array_equal(st1.numpy(), started[0])
+
+
+def _kernel_lanes(S, geom):
+    """The lanes each thread of a row's cluster handles as
+    csrc/event_step.cu indexes them: ``[c, threads, k]`` (``-1`` where a
+    thread has none).  Slot 0 is the lane held in registers,
+    ``rank * threads + tid``; slots 1.. are the strided rest, ``c * threads``
+    apart."""
+    c, T = geom
+    stride = c * T
+    first = np.arange(stride).reshape(c, T)
+    lanes = first[:, :, None] + stride * np.arange(max(1, -(-S // stride)))
+    return np.where(lanes < S, lanes, -1)
+
+
+@settings(max_examples=300, deadline=None)
+@given(B=st.integers(1, 300), S=st.integers(1, 40000),
+       sms=st.sampled_from((132, 114, 1)))
+def test_event_step_geometry_covers_every_lane_once(B, S, sms):
+    """The kernel's split of a row (csrc/event_step.cu): at most 8 CTAs a
+    cluster, CTAs of a multiple of 32 threads up to 1024, and every lane of
+    [0, S) handled by exactly one thread, in registers or in the strided
+    rest."""
+    geom = event_step_geometry(B, S, sms)
+    assert 1 <= geom.cluster <= MAX_CLUSTER
+    assert geom.threads % 32 == 0 and 32 <= geom.threads <= MAX_THREADS
+    lanes = _kernel_lanes(S, geom)
+    assert lanes.shape[:2] == (geom.cluster, geom.threads)
+    got = np.sort(lanes[lanes >= 0])
+    assert np.array_equal(got, np.arange(S))
+    # slot 0 (registers) is the contiguous lane rank * threads + tid
+    assert np.array_equal(lanes[..., 0].ravel()[:min(S, lanes[..., 0].size)],
+                          np.arange(min(S, lanes[..., 0].size)))
+
+
+def test_event_step_geometry_at_the_main_shape():
+    """run_batch's [32, 1440] on 132 SMs: 32 clusters of 4 CTAs of 384
+    threads, one lane a thread; more rows than SMs give one-CTA clusters."""
+    assert event_step_geometry(32, 1440) == (4, 384)
+    assert _kernel_lanes(1440, event_step_geometry(32, 1440)).shape[2] == 1
+    assert event_step_geometry(140, 1440).cluster == 1
+    assert _kernel_lanes(20000, event_step_geometry(1, 20000)).shape[2] > 1
 
 
 # --------------------------------------------------------------------------- #
@@ -417,6 +463,83 @@ def test_ssd_scan_plain_forms_match_both_reference_forms(b, s, h, g, p, n,
                                    atol=1e-4, err_msg=form)
         np.testing.assert_allclose(st.numpy(), np.asarray(st_r), rtol=1e-4,
                                    atol=1e-4, err_msg=form)
+
+
+# the shapes above, plus chunks that S does not divide (a ragged last chunk
+# of 8 and of 2)
+SSD_CHUNKED_SHAPES = SSD_SHAPES + [(1, 200, 4, 2, 32, 64, 64),
+                                   (2, 130, 2, 1, 16, 32, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_CHUNKED_SHAPES)
+def test_ssd_chunked_ref_matches_pallas_and_sequential(b, s, h, g, p, n,
+                                                       chunk):
+    """The state-passing form (the bf16 kernel's algorithm) in float32
+    against the reference's Pallas kernel (interpret; its wrapper halves the
+    chunk until it divides S) and its sequential oracle, y and final state
+    at 1e-4."""
+    arrays = _ssd_inputs(s + h + 1, b, s, h, g, p, n)
+    y, st = ref.ssd_scan_chunked_ref(*(torch.from_numpy(a) for a in arrays),
+                                     chunk=chunk)
+    jin = [jnp.asarray(a) for a in arrays]
+    for form, (y_r, st_r) in (
+            ("pallas", ref_ops.ssd_scan(*jin, chunk=chunk)),
+            ("sequential", ref_kref.ssd_scan_sequential_ref(*jin))):
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=1e-4,
+                                   atol=1e-4, err_msg=form)
+        np.testing.assert_allclose(st.numpy(), np.asarray(st_r), rtol=1e-4,
+                                   atol=1e-4, err_msg=form)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+    (1, 300, 2, 1, 64, 128, 300), (1, 512, 2, 1, 64, 128, 64),
+    (1, 256, 4, 2, 64, 128, 64), (1, 192, 3, 1, 20, 36, 64),
+    (1, 200, 4, 2, 32, 64, 64)])
+def test_ssd_chunked_ref_bf16_points_meet_the_bf16_bar(b, s, h, g, p, n,
+                                                       chunk):
+    """With the bf16 kernel's rounding points (hi / lo bf16 pairs for w, the
+    masked scores and the carried state), the chunked form stays within the
+    reference's bf16 bar (rtol = atol = 2e-2) of the reference's sequential
+    oracle and of the port's on the same bf16 inputs — mamba2's one chunk of
+    300 and eight chunks of 64 at S = 512 included — and differs from the
+    unrounded form."""
+    tin = [torch.from_numpy(a).bfloat16()
+           for a in _ssd_inputs(s + p, b, s, h, g, p, n)]
+    y, st = ref.ssd_scan_chunked_ref(*tin, chunk=chunk, bf16_points=True)
+    assert y.dtype == st.dtype == torch.bfloat16
+    jin = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in tin]
+    for form, (y_r, st_r) in (
+            ("reference", ref_kref.ssd_scan_sequential_ref(*jin)),
+            ("port", (t.float().numpy()
+                      for t in ref.ssd_scan_sequential_ref(*tin)))):
+        for got, want in ((y, y_r), (st, st_r)):
+            np.testing.assert_allclose(
+                got.float().numpy(), np.asarray(want, np.float32),
+                rtol=2e-2, atol=2e-2, err_msg=form)
+    y_exact, _ = ref.ssd_scan_chunked_ref(*(t.float() for t in tin),
+                                          chunk=chunk)
+    assert not torch.equal(y.float(), y_exact.bfloat16().float())
+
+
+def test_ssd_chunked_ref_single_bf16_points_miss_the_bf16_bar():
+    """Why the bf16 kernel carries hi / lo pairs: one bf16 rounding at each
+    of its points misses the 2e-2 bar against the reference's sequential
+    oracle at mamba2's head width over eight chunks, where the pairs meet
+    it.  (The largest error grows with the number of outputs: chip_smoke.py
+    reports both shares at the served shape.)"""
+    b, s, h, g, p, n, chunk = 2, 512, 4, 1, 64, 128, 64
+    tin = [torch.from_numpy(a).bfloat16()
+           for a in _ssd_inputs(s + p, b, s, h, g, p, n)]
+    jin = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in tin]
+    want = np.asarray(ref_kref.ssd_scan_sequential_ref(*jin)[0], np.float32)
+
+    def share(pairs):
+        y, _ = ref.ssd_scan_chunked_ref(*tin, chunk=chunk, bf16_points=True,
+                                        bf16_pairs=pairs)
+        return float(np.max(np.abs(y.float().numpy() - want)
+                            / (2e-2 + 2e-2 * np.abs(want))))
+
+    assert share(True) <= 1.0 < share(False)
 
 
 def test_ssd_model_form_matches_reference_model_form():

@@ -162,3 +162,24 @@ def test_build_digest_covers_each_sources_own_flags(monkeypatch):
     assert after["rmsnorm"] != before["rmsnorm"]
     assert {k: v for k, v in after.items() if k != "rmsnorm"} == \
         {k: v for k, v in before.items() if k != "rmsnorm"}
+
+
+def test_build_digest_covers_every_shared_header(monkeypatch, tmp_path):
+    """Every ``csrc/*.cuh`` feeds every library's digest: an edited header
+    (``hopper.cuh``, ``common.cuh``) rebuilds each kernel that may include
+    it instead of serving a stale library."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
+    assert {"common.cuh", "hopper.cuh"} <= set(headers)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._digest(name) for name in _build.KERNELS}
+    for header in headers:
+        path = csrc / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = {name: _build._digest(name) for name in _build.KERNELS}
+        assert all(after[k] != before[k] for k in _build.KERNELS), header
+        before = after
