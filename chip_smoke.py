@@ -11,22 +11,27 @@ with a non-zero exit code:
                        with each source's flags, registers, spills and shared
                        memory as ptxas reports them (the run fails on a
                        spill), and the tensor-core and asynchronous-copy
-                       instructions in the SASS of flash_attention and
-                       ssd_scan (cuobjdump; the run fails if a bf16 kernel
-                       has no HGMMA)
+                       instructions in the SASS of flash_attention,
+                       ssd_scan and alloc_active_set (cuobjdump; the run
+                       fails if a bf16 kernel has no HGMMA, or the
+                       allocator's warp-route kernel no bulk copy, UBLKCP)
   3. kernels           each kernel against its plain torch version on the card
                        (event_step also bit-for-bit against the host numpy
                        core, at shapes that take a one-CTA cluster, a row end
                        inside a warp and a strided rest past the lanes held
-                       in registers), with times: CUDA events, warm-up,
-                       >= 20 launches
+                       in registers; alloc_active_set on two kinds of data at
+                       shapes that end in a partial tile, have odd rows, and
+                       sit on either side of its two routes' border), with
+                       times: CUDA events, warm-up, >= 20 launches, and
+                       torch.profiler's device time and launches a call
   4. run_batch         the main path: Simulator.run_batch, HAF-Static, the
                        dense-urban fleet at n_nodes=480 (S = 1440 instances),
                        B = 32 replicas, default engine (the event_step kernel),
                        against the same workloads on engine="numpy"
   5. allocate_cluster  the second path: the fleet-wide allocator through the
                        alloc_active_set kernel at (N, S) = (16384, 128)
-                       against the float64 host solver
+                       against the float64 host solver, with the call's
+                       device time by torch.profiler
   6. serve             the model zoo's serving path, build_model -> init ->
                        prefill -> pad_cache -> greedy decode_step, for
                        qwen2-0.5b (impl="flash", the flash_attention kernel)
@@ -82,6 +87,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import allocator
 from repro_torch.core.allocator_np import allocate_cluster_np
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.alloc_active_set import alloc_active_set_geometry
 from repro_torch.kernels.event_step import event_step_geometry
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
@@ -219,6 +225,8 @@ def sass_counts(lib) -> dict:
 # the bf16 tensor-core kernels of each library, by a part of their names
 TC_KERNELS = {"flash_attention": ("flash_tc_kernel",),
               "ssd_scan": ("ssd_state_kernel", "ssd_out_kernel")}
+# the kernels fed by 1-D bulk copies (cp.async.bulk -> UBLKCP in the SASS)
+BULK_KERNELS = {"alloc_active_set": ("alloc_warp_kernel",)}
 
 
 def phase_build(libs) -> None:
@@ -244,6 +252,18 @@ def phase_build(libs) -> None:
         totals = {op: sum(c[op] for c in sass.values())
                   for op in TENSOR_CORE_OPS + ASYNC_COPY_OPS}
         report[f"{lib}_sass"] = {"per_kernel": sass, "library_total": totals}
+    for lib, kernels in BULK_KERNELS.items():
+        sass = sass_counts(libs[lib])
+        for part in kernels:
+            found = {k: c for k, c in sass.items() if part in k}
+            if not found:
+                raise AssertionError(f"{lib}: no {part} in the library's SASS "
+                                     f"({sorted(sass)})")
+            for k, c in found.items():
+                if not c["UBLKCP"]:
+                    raise AssertionError(f"{k}: no bulk copy (UBLKCP) in its "
+                                         f"SASS: {c}")
+        report[f"{lib}_sass"] = {"per_kernel": sass}
     emit("build_report", ptxas=ptxas, spills=False,
          cuobjdump=find_cuobjdump(), **report)
 
@@ -315,6 +335,22 @@ def profiled(fn, parts, iters: int = 20):
     return us, launches
 
 
+def host_us(fn, calls: int = 200):
+    """``(median, 10th percentile)`` host µs of one call of ``fn``, wall
+    clock around the call with no synchronisation (what the caller's thread
+    spends to enqueue it; the percentile is less moved by a busy host)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(walls)), float(np.percentile(walls, 10))
+
+
 # --------------------------------------------------------------------------- #
 # inputs (numpy, from a seed)
 # --------------------------------------------------------------------------- #
@@ -354,7 +390,14 @@ def step_inputs(kind: str, seed: int, B: int, S: int):
     return a
 
 
-def alloc_inputs(seed: int, N: int, S: int):
+# kinds of allocator data: "yardstick" (the kernel table's timed row from
+# the first port of this kernel on; at S = 128 nearly every row's floors
+# exceed its capacity and are rescaled) and "feasible" (the same draws with
+# floors x 0.1: most rows keep theirs)
+ALLOC_KINDS = {"yardstick": 1.0, "feasible": 0.1}
+
+
+def alloc_inputs(seed: int, N: int, S: int, kind: str = "yardstick"):
     rng = np.random.default_rng(seed)
     psi = rng.uniform(0, 1e14, (N, S))
     omega = rng.uniform(0, 100, (N, S))
@@ -362,7 +405,7 @@ def alloc_inputs(seed: int, N: int, S: int):
     floors = np.where(rng.random((N, S)) < 0.3,
                       rng.uniform(0, 2e13, (N, S)), 0.0)
     mask = rng.random((N, S)) < 0.9
-    return psi, omega, floors, cap, mask
+    return psi, omega, floors * ALLOC_KINDS[kind], cap, mask
 
 
 def to_dev(arrays):
@@ -415,16 +458,25 @@ def check_event_step(kind: str, seed: int, B: int, S: int) -> float:
     return err
 
 
-def check_alloc(seed: int, N: int, S: int):
+def alloc_dev(seed: int, N: int, S: int, kind: str = "yardstick"):
+    """The allocator's five inputs on the card, f32 and bool."""
+    psi, omega, floors, cap, mask = alloc_inputs(seed, N, S, kind)
+    return to_dev([x.astype(np.float32) for x in (psi, omega, floors, cap)]
+                  + [mask])
+
+
+def check_alloc(seed: int, N: int, S: int, kind: str = "yardstick"):
     """Kernel vs plain f32 version on the card: ``rtol=1e-4,
     atol=cap*1e-5`` (f32 sums taken in another order), ``feasible`` equal.
     Returns (max abs err, max err relative to the row's capacity)."""
-    psi, omega, floors, cap, mask = alloc_inputs(seed, N, S)
-    dev = to_dev([x.astype(np.float32) for x in (psi, omega, floors, cap)]
-                 + [mask])
+    dev = alloc_dev(seed, N, S, kind)
     al, fe, pin = ops.alloc_active_set(*dev)
     r_al, r_fe, _ = ref.alloc_active_set_ref(*dev)
     torch.cuda.synchronize()
+    if al.dtype != torch.float32 or fe.dtype != torch.bool \
+            or pin.dtype != torch.bool:
+        raise AssertionError(f"alloc_active_set[{N}x{S}]: output dtypes "
+                             f"{al.dtype}, {fe.dtype}, {pin.dtype}")
     if not torch.equal(fe, r_fe):
         raise AssertionError(f"alloc_active_set[{N}x{S}]: feasible differs")
     cap_col = dev[3][:, None]
@@ -496,29 +548,75 @@ def phase_kernels(args):
              "plain_ms": es_plain, "bound_ms": es_bound,
              "bound_by": es_by, "bytes": es_bytes}
 
-    alloc_shapes = [(1024, 64), (args.alloc_n, 128)]
-    alloc = []
-    for (N, S_) in alloc_shapes + [(7, 1), (5, 37), (3, 1440), (2, 3000)]:
-        abs_err, cap_rel = check_alloc(2, N, S_)
-        alloc.append({"shape": [N, S_], "max_abs_err": abs_err,
-                      "max_err_over_cap": cap_rel})
-    for rec, (N, S_) in zip(alloc, alloc_shapes):
-        psi, omega, floors, cap, mask = alloc_inputs(2, N, S_)
-        d = to_dev([x.astype(np.float32)
-                    for x in (psi, omega, floors, cap)] + [mask])
-        rounds = ref.alloc_active_set_rounds(*d)
-        bound, by, nbytes = alloc_bound_ms(N, S_, rounds)
-        rec.update(ms=median_ms(lambda: ops.alloc_active_set(*d)),
-                   plain_ms=median_ms(
-                       lambda: ref.alloc_active_set_ref(*d), iters=20,
-                       repeats=3),
-                   bound_ms=bound, bound_by=by, bytes=nbytes,
-                   mean_rounds=float(rounds.double().mean()),
-                   max_rounds=int(rounds.max()))
+    alloc = phase_alloc_kernel(args)
     emit("kernels", event_step=event, alloc_active_set=alloc,
          timing="CUDA events, 5 warm-up + 50 launches (plain: 20), median "
-                "of 5 repeats, inputs L2-warm")
-    return event, alloc[1]
+                "of 5 repeats, inputs L2-warm; device µs from torch.profiler "
+                "over 20 calls; wrapper host µs: median of 200 calls, wall "
+                "clock around each, not synchronised")
+    return event, alloc
+
+
+# shapes of the alloc_active_set checks beside the two timed ones: rows of
+# one and of 37 lanes (a lone partial tile), N not a multiple of the tile
+# ((1023, 128): tiles of 4 rows and a last one of 3; (4097, 60)), odd S
+# (2049 x 37: tiles of 16 rows, one row left), the warp route's widest row
+# (1024) and the first long row (1025), and the long-row route at 1440 and
+# 3000 lanes
+ALLOC_SHAPES = ((7, 1), (5, 37), (1023, 128), (4097, 60), (2049, 37),
+                (512, 1024), (64, 1025), (3, 1440), (2, 3000))
+
+
+def phase_alloc_kernel(args):
+    """alloc_active_set against its plain version at every checked shape and
+    data kind, then timed at the two yardstick shapes and on the feasible
+    kind at the large one.  Returns the phase's record, whose top level is
+    the timed row of the kernel table: (alloc_n, 128) on yardstick data."""
+    timed = [("yardstick", 1024, 64), ("yardstick", args.alloc_n, 128),
+             ("feasible", args.alloc_n, 128)]
+    checked = []
+    for kind in ALLOC_KINDS:
+        for (N, S) in [(n, s) for _, n, s in timed[:2]] + list(ALLOC_SHAPES):
+            abs_err, cap_rel = check_alloc(2, N, S, kind)
+            checked.append({"shape": [N, S], "kind": kind,
+                            "route": alloc_active_set_geometry(N, S,
+                                                               SMS).route,
+                            "max_abs_err": abs_err,
+                            "max_err_over_cap": cap_rel})
+    recs = []
+    for kind, N, S in timed:
+        d = alloc_dev(2, N, S, kind)
+        geom = alloc_active_set_geometry(N, S, SMS)
+        if geom.route != "warp":
+            raise AssertionError(f"alloc_active_set[{N}x{S}]: timed shape "
+                                 f"on the {geom.route} route")
+        rounds = ref.alloc_active_set_rounds(*d)
+        bound, by, nbytes = alloc_bound_ms(N, S, rounds)
+        dev_us, launches = profiled(lambda: ops.alloc_active_set(*d),
+                                    ("alloc_warp_kernel",))
+        ms = median_ms(lambda: ops.alloc_active_set(*d))
+        dev_us = dev_us["alloc_warp_kernel"]
+        host, host_p10 = host_us(lambda: ops.alloc_active_set(*d))
+        recs.append({
+            "shape": [N, S], "kind": kind, "route": geom.route,
+            "geometry": geom._asdict(), "ms": ms,
+            "profiler_device_us": dev_us,
+            "cuda_launches_per_call": launches["alloc_warp_kernel"],
+            "wrapper_host_us": host, "wrapper_host_us_p10": host_p10,
+            "plain_ms": median_ms(lambda: ref.alloc_active_set_ref(*d),
+                                  iters=20, repeats=3),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "bound_share": bound / ms,
+            "device_bound_share": bound / (dev_us / 1e3),
+            "mean_rounds": float(rounds.double().mean()),
+            "max_rounds": int(rounds.max()),
+            "feasible_rows": float(ref.alloc_active_set_ref(*d)[1]
+                                   .double().mean())})
+    return {**recs[1], "max_abs_err": max(c["max_abs_err"] for c in checked),
+            "cases": len(checked), "timed": recs, "checked": checked,
+            "tolerance": "rtol=1e-4, atol=capacity*1e-5 vs "
+                         "ref.alloc_active_set_ref, feasible equal, no "
+                         "masked lane leaking, no row over capacity"}
 
 
 # --------------------------------------------------------------------------- #
@@ -921,10 +1019,28 @@ def phase_allocate_cluster(args):
     feas = (g.feasible & c.feasible).cpu().numpy()
     if not np.array_equal(feas, feas_np):
         raise AssertionError("allocate_cluster: feasible differs from host")
-    ms = median_ms(lambda: allocator.allocate_cluster(*dev, use_kernel=True),
-                   iters=20)
+    def call():
+        return allocator.allocate_cluster(*dev, use_kernel=True)
+    ms = median_ms(call, iters=20)
+    # device time of one call: its two kernel launches and everything the
+    # call runs on the card (the float64 inputs' casts to float32 included).
+    # The trace of this call can miss a few of its ~160 kernels, so the
+    # kernel's time is its mean per traced launch times the launches the
+    # wrapper counted above, and the trace's own count is reported
+    call()
+    _, per, calls = device_times(call, 20)
+    kern = [k for k in per if "alloc_warp_kernel" in k]
+    traced = sum(calls[k] for k in kern)
+    per_launch = sum(per[k] for k in kern) / traced
     emit("allocate_cluster", N=N, S=S, launches=launches, errors=errs,
-         feasible_equal=True, call_ms=ms, host_numpy_s=host_s,
+         feasible_equal=True, call_ms=ms,
+         profiled={"kernel_device_us_per_launch": per_launch,
+                   "kernel_device_us": per_launch * launches,
+                   "kernel_launches_in_trace": traced,
+                   "call_device_us_in_trace": sum(per.values()),
+                   "by_kernel_us": per},
+         host_numpy_s=host_s,
+         inputs="float64 (cast to float32 inside each solve)",
          tolerance="rtol=1e-4, atol=cap*1e-5 vs float64 allocate_cluster_np")
     return launches
 
@@ -1211,11 +1327,16 @@ def main() -> None:
             "src/repro/kernels/event_step.py:34",
             "bit-for-bit (torch.equal on all five outputs)",
             "Simulator.run_batch, one launch per tick"),
-        row("alloc_active_set", alloc, alloc_launches,
-            "src/repro/kernels/alloc_active_set.py:31",
-            "rtol=1e-4, atol=capacity*1e-5 (f32 sums in another order; "
-            "capacity up to 2e14), feasible equal",
-            "allocate_cluster(use_kernel=True), GPU and CPU problem"),
+        dict(row("alloc_active_set", alloc, alloc_launches,
+                 "src/repro/kernels/alloc_active_set.py:31",
+                 "rtol=1e-4, atol=capacity*1e-5 (f32 sums in another order; "
+                 "capacity up to 2e14), feasible equal",
+                 "allocate_cluster(use_kernel=True), GPU and CPU problem"),
+             design_route=alloc["route"], geometry=alloc["geometry"],
+             profiler_device_us=alloc["profiler_device_us"],
+             device_bound_share=alloc["device_bound_share"],
+             wrapper_host_us=alloc["wrapper_host_us"],
+             wrapper_host_us_p10=alloc["wrapper_host_us_p10"]),
         row("flash_attention", mk["flash_attention"],
             served["flash_attention"]["launches"],
             "src/repro/kernels/flash_attention.py:29",

@@ -81,7 +81,7 @@ def allocate_cluster(psi_g: torch.Tensor, psi_c: torch.Tensor,
     """Fleet-wide allocation: everything is [N, S]; capacities are [N].
 
     ``use_kernel=None`` (default) takes the ``alloc_active_set`` CUDA kernel
-    (f32, one thread block per node row, two launches: GPU and CPU problem)
+    (f32, one warp per node row, two launches: GPU and CPU problem)
     when the tensors lie on a CUDA device, and the plain version in the
     inputs' dtype when they lie on the CPU.  ``use_kernel=True`` demands the
     kernel and raises on CPU tensors; ``use_kernel=False`` asks for the

@@ -10,6 +10,7 @@ implementation.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -48,7 +49,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "event_step_launch": [_c_ptr] * 13 + [_c_int] * 4 + [_c_ptr],
-    "alloc_active_set_launch": [_c_ptr] * 8 + [_c_int, _c_int, _c_ptr],
+    # psi, omega, floors, capacity, mask, alloc, feasible, pinned, N, S,
+    # route, rows, stages, ctas, warps, stream
+    "alloc_active_set_launch": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
     # x, w, y, rows, d, eps, x_dtype, stream
     "rmsnorm_launch": [_c_ptr] * 3 + [_c_int, _c_int, _c_float, _c_int,
                                       _c_ptr],
@@ -59,6 +62,35 @@ _SIGNATURES = {
     # b, S, h, g, p, px, n, nx, chunk, dtype, stream
     "ssd_scan_launch": [_c_ptr] * 12 + [_c_int] * 10 + [_c_ptr],
 }
+
+
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(dev: torch.device):
+    """A context in which ``dev`` is the current CUDA device: nothing to do
+    where it already is, ``torch.cuda.device(dev)`` where it is not."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+# the current stream's handle without building a torch.cuda.Stream object
+# (a few µs a launch); absent from builds of torch without CUDA
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(dev: torch.device) -> int:
+    """The ``cudaStream_t`` of ``dev``'s current stream, as an int."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def find_nvcc() -> str:

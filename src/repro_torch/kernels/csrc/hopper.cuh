@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the tensor-core kernels of repro_torch
-// (flash_attention, ssd_scan): shared-memory addresses, mbarriers, TMA tile
-// loads over 4-D tensor maps, wgmma descriptors and instructions (bf16 in,
-// f32 accumulate), the SFU's 2^x and bf16 packing.  sm_90a only.
+// Hopper building blocks shared by the kernels of repro_torch that stage
+// data through shared memory (flash_attention, ssd_scan, alloc_active_set):
+// shared-memory addresses, mbarriers, TMA tile loads over 4-D tensor maps,
+// 1-D bulk copies, wgmma descriptors and instructions (bf16 in, f32
+// accumulate), the SFU's 2^x and bf16 packing.  sm_90a only.
 //
 // Everything here has internal linkage: each source in this directory is
 // compiled on its own into its own library.
@@ -46,6 +47,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                  :: "r"(bar), "r"(bytes) : "memory");
 }
 
+// a plain arrival (no transaction bytes), as a consumer's release of a stage
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
 // Waits for the phase of parity `parity` to complete.  A copy that never
 // lands (a fault, not a slow tile) traps after ~2^34 cycles (seconds) so the
 // launch fails with an error instead of hanging the card.
@@ -72,6 +79,19 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
         "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
         :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
            "r"(c0), "r"(head), "r"(s0), "r"(b)
+        : "memory");
+}
+
+// one 1-D bulk copy of `bytes` contiguous bytes, global -> shared, completing
+// as transaction bytes on `bar`; no tensor map.  `bytes`, `src` and `dst`
+// must all be multiples of 16 (the copy is never rounded up past the end)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+           "r"(bar)
         : "memory");
 }
 

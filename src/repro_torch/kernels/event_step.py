@@ -11,7 +11,6 @@ launcher.  The plain version is :func:`repro_torch.kernels.ref.event_step_ref`.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -20,7 +19,6 @@ from repro_torch.kernels import _build
 
 MAX_CLUSTER = 8          # the portable thread-block cluster size
 MAX_THREADS = 1024       # threads per CTA
-H100_SMS = 132
 
 
 class Geometry(NamedTuple):
@@ -28,7 +26,8 @@ class Geometry(NamedTuple):
     threads: int         # threads per CTA, a multiple of 32
 
 
-def event_step_geometry(B: int, S: int, sms: int = H100_SMS) -> Geometry:
+def event_step_geometry(B: int, S: int,
+                        sms: int = _build.H100_SMS) -> Geometry:
     """How the kernel splits a ``[B, S]`` block: each row takes a cluster
     of ``c`` CTAs — as many as keep the B clusters within the card's
     ``sms`` SMs, at most 8, and no more than the row has 32-lane warps —
@@ -45,11 +44,6 @@ def event_step_geometry(B: int, S: int, sms: int = H100_SMS) -> Geometry:
     return Geometry(c, threads)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def event_step_cuda(rem_g: torch.Tensor, rem_c: torch.Tensor,
                     alloc_g: torch.Tensor, alloc_c: torch.Tensor,
                     avail: torch.Tensor, t: torch.Tensor,
@@ -64,7 +58,7 @@ def event_step_cuda(rem_g: torch.Tensor, rem_c: torch.Tensor,
     """
     B, S = rem_g.shape
     dev = rem_g.device
-    geom = event_step_geometry(B, S, _sm_count(dev.index))
+    geom = event_step_geometry(B, S, _build.sm_count(dev.index))
     rg_out = torch.empty_like(rem_g)
     rc_out = torch.empty_like(rem_c)
     started = torch.empty((B, S), dtype=torch.uint8, device=dev)

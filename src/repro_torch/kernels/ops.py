@@ -79,13 +79,22 @@ def event_step(rem_g: torch.Tensor, rem_c: torch.Tensor,
     return out
 
 
+def _as_contiguous(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` itself where it is a contiguous ``dtype`` tensor (no dispatch),
+    else a contiguous ``dtype`` copy."""
+    if x.dtype == dtype and x.is_contiguous():
+        return x
+    return x.to(dtype).contiguous()
+
+
 def alloc_active_set(psi: torch.Tensor, omega: torch.Tensor,
                      floors: torch.Tensor, capacity: torch.Tensor,
                      mask: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[N, S]`` fleet allocation, f32 like the reference kernel: inputs
-    are cast to float32 (``mask`` to bool) and made contiguous.  Returns
-    ``(alloc [N,S] f32, feasible [N] bool, pinned [N,S] bool)``."""
+    are cast to float32 (``mask`` to bool) and made contiguous where they
+    are not already.  Returns ``(alloc [N,S] f32, feasible [N] bool,
+    pinned [N,S] bool)``."""
     if psi.dim() != 2 or psi.shape[0] < 1 or psi.shape[1] < 1:
         raise ValueError(f"alloc_active_set: psi must be a non-empty [N, S] "
                          f"block, got {tuple(psi.shape)}")
@@ -94,15 +103,20 @@ def alloc_active_set(psi: torch.Tensor, omega: torch.Tensor,
         raise ValueError(f"alloc_active_set: S={S} exceeds the kernel's "
                          f"row limit of {MAX_S} lanes")
     dev = psi.device
-    psi32, omega32, floors32 = (
-        x.to(torch.float32).contiguous() for x in (psi, omega, floors))
-    cap32 = capacity.to(torch.float32).reshape(N).contiguous()
-    mask_b = mask.to(torch.bool).contiguous()
-    for name, x in (("psi", psi32), ("omega", omega32),
-                    ("floors", floors32)):
-        _check(f"alloc_active_set {name}", x, torch.float32, (N, S), dev)
-    _check("alloc_active_set capacity", cap32, torch.float32, (N,), dev)
-    _check("alloc_active_set mask", mask_b, torch.bool, (N, S), dev)
+    psi32, omega32, floors32 = (_as_contiguous(x, torch.float32)
+                                for x in (psi, omega, floors))
+    cap32 = _as_contiguous(capacity if capacity.shape == (N,)
+                           else capacity.reshape(N), torch.float32)
+    mask_b = _as_contiguous(mask, torch.bool)
+    # dtype and contiguity hold by construction: shape and device remain
+    for name, x in (("omega", omega32), ("floors", floors32),
+                    ("mask", mask_b)):
+        if x.shape != psi.shape or x.device != dev:
+            raise ValueError(f"alloc_active_set {name}: expected {(N, S)} on "
+                             f"{dev}, got {tuple(x.shape)} on {x.device}")
+    if cap32.device != dev:
+        raise ValueError(f"alloc_active_set capacity: expected {dev}, got "
+                         f"{cap32.device}")
     if dev.type == "cpu":
         return kref.alloc_active_set_ref(psi32, omega32, floors32, cap32,
                                          mask_b)

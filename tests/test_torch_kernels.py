@@ -18,6 +18,9 @@ looser.  Allocator: ``rtol=1e-4, atol=cap*1e-5`` (f32
 sums taken in another order).  Model kernels: the reference's own
 tolerances, stated at their section below.
 """
+import math
+import pathlib
+import re
 import types
 
 import jax
@@ -36,6 +39,7 @@ from repro.kernels import ref as ref_kref
 from repro.models.ssm import ssd_scan_ref as ref_model_ssd
 from repro.sim.event_core import NumpyBatchedEventCore
 from repro_torch import convert
+from repro_torch.kernels import alloc_active_set as aas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.event_step import (MAX_CLUSTER, MAX_THREADS,
                                             event_step_geometry)
@@ -216,7 +220,12 @@ def test_event_step_geometry_at_the_main_shape():
 # --------------------------------------------------------------------------- #
 # alloc_active_set
 # --------------------------------------------------------------------------- #
-def _alloc_inputs(seed, N, S):
+# floors scale of each kind of data: "random" (at wide rows most floors sum
+# past the capacity and are rescaled) and "feasible" (most rows keep theirs)
+ALLOC_KINDS = {"random": 1.0, "feasible": 0.1}
+
+
+def _alloc_inputs(seed, N, S, kind="random"):
     rng = np.random.default_rng(seed)
     psi = rng.uniform(0, 1e14, (N, S))
     omega = rng.uniform(0, 100, (N, S))
@@ -224,16 +233,28 @@ def _alloc_inputs(seed, N, S):
     floors = np.where(rng.random((N, S)) < 0.3,
                       rng.uniform(0, 2e13, (N, S)), 0.0)
     mask = rng.random((N, S)) < 0.9
-    return psi, omega, floors, cap, mask
+    return psi, omega, floors * ALLOC_KINDS[kind], cap, mask
 
 
-ALLOC_CASES = [(seed, 4, S) for seed in range(4) for S in (1, 12, 37, 128)] \
-    + [(7, 3, 200)]
+# (seed, N, S, kind); then N that are not multiples of 16 (the kernel's
+# tiles: a partial last tile) and the feasible-dominant kind
+ALLOC_CASES = [(seed, 4, S, "random") for seed in range(4)
+               for S in (1, 12, 37, 128)] + [(7, 3, 200, "random")] \
+    + [(seed, N, S, "random") for seed, N, S in ((8, 17, 12), (9, 33, 37),
+                                                 (10, 23, 128))] \
+    + [(seed, N, S, "feasible") for seed, N, S in ((0, 4, 37), (1, 4, 128),
+                                                   (2, 17, 128), (3, 9, 60))]
 
 
-@pytest.mark.parametrize("seed,N,S", ALLOC_CASES)
-def test_alloc_ref_f32_matches_pallas_and_numpy(seed, N, S):
-    psi, omega, floors, cap, mask = _alloc_inputs(seed, N, S)
+def _alloc_case_id(case):
+    seed, N, S, kind = case        # the first cases keep their earlier ids
+    return f"{seed}-{N}-{S}" + ("" if kind == "random" else f"-{kind}")
+
+
+@pytest.mark.parametrize("seed,N,S,kind", ALLOC_CASES,
+                         ids=[_alloc_case_id(c) for c in ALLOC_CASES])
+def test_alloc_ref_f32_matches_pallas_and_numpy(seed, N, S, kind):
+    psi, omega, floors, cap, mask = _alloc_inputs(seed, N, S, kind)
     t32 = [torch.from_numpy(x.astype(np.float32))
            for x in (psi, omega, floors, cap)]
     al, fe, pin = ref.alloc_active_set_ref(*t32, torch.from_numpy(mask))
@@ -269,6 +290,158 @@ def test_alloc_ref_f64_and_infeasible_floors(seed):
         assert bool(fe[n]) == bool(f_np)
         assert al[n].sum() <= cap[n] * (1 + 1e-9)
     assert not fe.all()
+
+
+def test_alloc_feasible_kind_keeps_most_floors():
+    """The feasible-dominant data is what it says: most rows fit their
+    floors, where the random kind's wide rows mostly do not."""
+    fits = {}
+    for kind in ALLOC_KINDS:
+        psi, omega, floors, cap, mask = _alloc_inputs(0, 64, 128, kind)
+        _, fe, _ = ref.alloc_active_set_ref(
+            *(torch.from_numpy(x) for x in (psi, omega, floors, cap, mask)))
+        fits[kind] = float(fe.double().mean())
+    assert fits["feasible"] > 0.9 > 0.1 > fits["random"]
+
+
+def _alloc_fixed_rounds(psi, omega, floors, capacity, mask):
+    """The reference kernel's schedule: exactly S pinning rounds, no early
+    stop (src/repro/kernels/alloc_active_set.py's fori_loop)."""
+    S = psi.shape[-1]
+    zero = torch.zeros_like(psi)
+    cap = capacity[:, None]
+    psi = torch.where(mask, psi.clamp_min(0.0), zero)
+    omega = torch.where(mask, omega.clamp_min(0.0), zero)
+    floors = torch.where(mask, floors.clamp_min(0.0), zero)
+    w = torch.sqrt(omega * psi)
+    floor_sum = floors.sum(dim=1, keepdim=True)
+    feasible = floor_sum <= cap + 1e-6
+    floors_eff = floors * torch.where(feasible, torch.ones_like(cap),
+                                      cap / floor_sum.clamp_min(1e-9))
+
+    def shares(pinned):
+        rem = cap - torch.where(pinned, floors_eff, zero).sum(1, keepdim=True)
+        denom = torch.where(pinned, zero, w).sum(1, keepdim=True)
+        return w * rem.clamp_min(0.0) / denom.clamp_min(1e-9)
+
+    pinned = w <= 0.0
+    for _ in range(S):
+        pinned = pinned | (shares(pinned) < floors_eff)
+    alloc = torch.where(mask, torch.where(pinned, floors_eff, shares(pinned)),
+                        zero)
+    return alloc, feasible[:, 0], pinned & mask
+
+
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+@pytest.mark.parametrize("floor_scale", (1.0, 2.0, 4.0))
+def test_alloc_early_stop_equals_fixed_rounds(dtype, floor_scale):
+    """The plain version (and the kernel) stop a row at the first round that
+    pins nothing new; S rounds give the same allocation, feasibility and
+    pinned set, bit for bit, on random rows of random widths."""
+    rng = np.random.default_rng(int(floor_scale * 10) + (dtype == np.float64))
+    deep = 0
+    for S in (1, 5, 32, 37, 100):
+        N = 24
+        psi = rng.uniform(0, 1e14, (N, S)) * (rng.random((N, S)) < 0.8)
+        omega = rng.uniform(0, 100, (N, S))
+        cap = rng.uniform(5e13, 2e14, N)
+        # floors near each lane's proportional share, so pinning cascades
+        w = np.sqrt(psi * omega)
+        share = w * cap[:, None] / np.maximum(w.sum(1, keepdims=True), 1e-9)
+        floors = share * rng.uniform(0.0, 2.0, (N, S)) * floor_scale \
+            * (rng.random((N, S)) < 0.6)
+        mask = rng.random((N, S)) < 0.85
+        t = [torch.from_numpy(x.astype(dtype))
+             for x in (psi, omega, floors, cap)] + [torch.from_numpy(mask)]
+        got = ref.alloc_active_set_ref(*t)
+        want = _alloc_fixed_rounds(*t)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+        deep = max(deep, int(ref.alloc_active_set_rounds(*t).max()))
+    assert deep >= 3          # some row needed rounds past the first pins
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's split of a fleet (csrc/alloc_active_set.cu)
+# --------------------------------------------------------------------------- #
+def _cu_constants(path):
+    """``constexpr int NAME = <integer product>;`` of a CUDA source."""
+    out = {}
+    text = path.read_text()
+    for m in re.finditer(r"constexpr int (\w+) = ([\d\s*]+);", text):
+        out[m.group(1)] = math.prod(int(x) for x in m.group(2).split("*"))
+    return out
+
+
+def test_alloc_geometry_limits_are_the_kernels():
+    """The geometry's limits are the ones the kernel declares and checks."""
+    cu = _cu_constants(pathlib.Path(aas.__file__).parent / "csrc"
+                       / "alloc_active_set.cu")
+    assert cu["WARP_MAX_S"] == aas.WARP_MAX_S
+    assert cu["MAX_STAGES"] == aas.MAX_STAGES
+    assert cu["MAX_CONSUMERS"] == aas.MAX_WARPS
+    assert cu["RING_BYTES"] == aas.RING_BYTES
+    assert cu["MAX_CTAS_PER_SM"] == aas.MAX_CTAS_PER_SM
+    assert cu["IN_BYTES_PER_LANE"] == aas.IN_BYTES_PER_LANE
+    assert cu["MAX_LPT"] * cu["MAX_THREADS"] == aas.MAX_S
+    assert {"warp": cu["ROUTE_WARP"], "block": cu["ROUTE_BLOCK"]} \
+        == aas.ROUTES
+
+
+@settings(max_examples=400, deadline=None)
+@given(N=st.integers(1, 70000), S=st.integers(1, 8192),
+       sms=st.sampled_from((1, 66, 132)))
+def test_alloc_geometry_tiles_every_row_once(N, S, sms):
+    """Every row lies in exactly one tile and is solved by one warp; each
+    full tile's spans start and end on 16 bytes for every array (f32 and
+    the u8 mask); the ring fits the kernel's budget and the SM's shared
+    memory; rows over 1024 lanes take the long-row route; the grid is at
+    most k * sms CTAs."""
+    g = aas.alloc_active_set_geometry(N, S, sms)
+    if S > aas.WARP_MAX_S:
+        assert (g.route, g.rows, g.stages, g.ctas) == ("block", 1, 0, N)
+        threads = 32 * g.warps
+        assert threads <= 1024 and -(-S // threads) <= 8
+        return
+    assert g.route == "warp"
+    R, W = g.rows, g.warps
+    assert 1 <= W <= min(aas.MAX_WARPS, R) and 1 <= R <= aas.MAX_ROWS
+    assert R & (R - 1) == 0 and R % W == 0   # every warp, R / W rows a tile
+    tiles = -(-N // R)
+    assert 1 <= g.ctas <= min(tiles, aas.MAX_CTAS_PER_SM * sms)
+    # the kernel's walk: CTA c takes tiles c, c + ctas, ...; warp w of it
+    # rows w, w + W, ... of each tile
+    walk = np.concatenate([np.arange(c, tiles, g.ctas)
+                           for c in range(g.ctas)])
+    rows = (walk[:, None] * R + np.arange(R)[None, :]).ravel()
+    by_warp = np.concatenate([np.arange(w, R, W) for w in range(W)])
+    assert np.array_equal(np.sort(by_warp), np.arange(R))
+    assert np.array_equal(np.bincount(rows[rows < N], minlength=N),
+                          np.ones(N, int))
+    assert g.stages in (0, 2, 3)
+    if g.stages:
+        for elem in (4, 1):                 # psi / omega / floors, mask
+            assert (R * S * elem) % 16 == 0  # tile t starts at t R S elem
+        ring = g.stages * aas.IN_BYTES_PER_LANE * R * S
+        assert ring <= aas.RING_BYTES
+        per_sm = -(-g.ctas // sms)
+        assert per_sm * (ring + aas.CTA_SMEM_EXTRA) <= aas.SMEM_PER_SM
+    else:                                   # no aligned tile fits the ring
+        unit = 16 // math.gcd(S, 16)
+        assert 2 * aas.IN_BYTES_PER_LANE * unit * S > aas.RING_BYTES
+
+
+def test_alloc_geometry_at_the_timed_shapes():
+    """(16384, 128): tiles of 8 rows in 3 stages, 4 CTAs an SM of 8
+    consumer warps; (1024, 64): tiles cut to 4 rows so that every SM has
+    one; S = 1024 is the warp route's widest row, 1025 the first long one."""
+    assert aas.alloc_active_set_geometry(16384, 128) == ("warp", 8, 3, 528, 8)
+    assert aas.alloc_active_set_geometry(1024, 64) == ("warp", 4, 3, 256, 4)
+    assert aas.alloc_active_set_geometry(8, 1024).route == "warp"
+    assert aas.alloc_active_set_geometry(8, 1025) == ("block", 1, 0, 8, 8)
+    assert aas.alloc_active_set_geometry(2, 3000).warps == 32
+    with pytest.raises(ValueError):
+        aas.alloc_active_set_geometry(1, aas.MAX_S + 1)
 
 
 # --------------------------------------------------------------------------- #
@@ -317,6 +490,46 @@ def test_ops_alloc_active_set_on_cpu_casts_to_f32_and_limits_rows():
     wide = torch.zeros(1, 8193)
     with pytest.raises(ValueError, match="row limit"):
         ops.alloc_active_set(wide, wide, wide, torch.ones(1), wide > 0)
+
+
+def test_ops_alloc_active_set_converts_only_what_needs_it():
+    """Inputs that are already contiguous float32 / bool pass through
+    untouched; float64, non-contiguous, integer-mask and [N, 1] capacity
+    inputs give the same result as explicitly converted ones, in the same
+    dtypes, with no launch counted on the CPU."""
+    ops.reset_launch_counts()
+    psi, omega, floors, cap, mask = _alloc_inputs(3, 6, 20)
+    t32 = [torch.from_numpy(x.astype(np.float32))
+           for x in (psi, omega, floors, cap)] + [torch.from_numpy(mask)]
+    for x in t32:
+        want = torch.float32 if x.is_floating_point() else torch.bool
+        assert ops._as_contiguous(x, want) is x
+    want = ops.alloc_active_set(*t32)
+    odd = [torch.from_numpy(np.ascontiguousarray(x.T)).T
+           for x in (psi, omega, floors)]           # float64, transposed
+    assert not odd[0].is_contiguous()
+    got = ops.alloc_active_set(*odd, torch.from_numpy(cap)[:, None],
+                               torch.from_numpy(mask.astype(np.int32)))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert ops.launch_counts()["alloc_active_set"] == 0
+
+
+@pytest.mark.parametrize("bad", ("omega", "floors", "mask", "capacity",
+                                 "psi"))
+def test_ops_alloc_active_set_rejects_bad_shapes(bad):
+    t = dict(zip(("psi", "omega", "floors", "capacity", "mask"),
+                 (torch.from_numpy(x) for x in _alloc_inputs(0, 4, 9))))
+    if bad == "psi":
+        t["psi"] = t["psi"][0]
+    elif bad == "capacity":
+        t["capacity"] = t["capacity"][:3]
+    else:
+        t[bad] = t[bad][:, :8]
+    error = RuntimeError if bad == "capacity" else ValueError
+    with pytest.raises(error, match="alloc_active_set" if bad != "capacity"
+                       else "shape"):
+        ops.alloc_active_set(*t.values())
 
 
 # --------------------------------------------------------------------------- #
