@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Six phases, one JSON line each (phases 2 and 3 two); any failure ends the run
-with a non-zero exit code:
+Seven phases, one JSON line each (phases 2 and 3 two); any failure ends the
+run with a non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
   2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc,
@@ -28,6 +28,17 @@ with a non-zero exit code:
                        dense-urban fleet at n_nodes=480 (S = 1440 instances),
                        B = 32 replicas, default engine (the event_step kernel),
                        against the same workloads on engine="numpy"
+  4b. haf              the paper's method on the same path: the critic's
+                       training data harvested through run_batch on the cuda
+                       engine (bitwise the numpy engine's), the critic trained
+                       on the card (held-out loss below the untrained one's,
+                       torch forward within 1e-5 of the host forward_np,
+                       save -> load keeps fingerprint and bytes), HAF
+                       (qwen3-32b-sim stand-in + that critic) on the paper
+                       scenario at rho 1.0, B = 32, cuda against numpy as in
+                       phase 4 with >= 1 migration, the five baselines'
+                       SLO fulfilment beside HAF's, and spot-churn at B = 8
+                       cuda against numpy (forced migrations included)
   5. allocate_cluster  the second path: the fleet-wide allocator through the
                        alloc_active_set kernel at (N, S) = (16384, 128)
                        against the float64 host solver, with the call's
@@ -54,7 +65,10 @@ card's name and power limit as nvidia-smi prints them, and the last line
 
 With no options the fleet is full size (S = 1440, B = 32) and each replica's
 request stream is half the reference bench's, which keeps the run to a few
-minutes; ``--requests 4960`` runs the whole stream.  The other options shrink
+minutes; ``--requests 4960`` runs the whole stream.  Phase haf runs 700 of
+paper_table3's 5000 requests a replica (``--haf-requests``), a cut harvest
+(``--harvest-bulk``, ``--harvest-probe``) and the reference's 2000 training
+epochs (``--critic-epochs``).  The other options shrink
 the run for a rehearsal; the served models always run at their configs' full
 width and depth.
 """
@@ -91,6 +105,9 @@ from repro_torch.kernels.alloc_active_set import alloc_active_set_geometry
 from repro_torch.kernels.event_step import event_step_geometry
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.core import HAFPlacement, baselines, datagen, make_agent
+from repro_torch.core import critic as critic_mod
+from repro_torch.exp.artifacts import read_manifest, save_critic
 from repro_torch.sim import Simulator, make_scenario, workload_for
 from repro_torch.sim.engine import DeadlineAwareAllocation, StaticPlacement
 from repro_torch.sim.event_core import NumpyBatchedEventCore
@@ -119,6 +136,9 @@ SEED = 0                     # of the served models' weights and prompts
 
 # n_ai_requests of the reference's fleet-size bench cell
 FULL_REQUESTS = 4960
+# n_ai_requests of the paper's comparison (experiments/paper_table3.toml)
+HAF_FULL_REQUESTS = 5000
+CHURN_B = 8                  # replicas of the spot-churn check
 
 STEP_KEYS = ("rem_g", "rem_c", "alloc_g", "alloc_c", "avail", "t", "t_ev",
              "live")
@@ -893,7 +913,48 @@ def fingerprint(res):
     return (summary, res.n_events, res.infeasible_events,
             sorted(res.dropped), res.truncated,
             [(r.rid, r.target_sid) for r in res.requests],
-            [(t, a.sid, a.src, a.dst) for t, a in res.migrations])
+            [(t, a.sid, a.src, a.dst, a.forced) for t, a in res.migrations])
+
+
+def hold_engines(dev_res, host_res, what: str) -> bool:
+    """The cuda run against the numpy run of the same block: discrete
+    outcomes equal, finish times within 1e-9; returns whether the finish
+    times are bitwise equal too."""
+    if dev_res[0].engine != "cuda" or host_res[0].engine != "numpy":
+        raise AssertionError(f"{what}: run_batch did not use the engines "
+                             "asked for")
+    bitwise = True
+    for b, (d, h) in enumerate(zip(dev_res, host_res)):
+        if fingerprint(d) != fingerprint(h):
+            raise AssertionError(f"{what} replica {b}: discrete outcomes "
+                                 "differ between the cuda and numpy engines")
+        fd = np.array([r.finish for r in d.requests])
+        fh = np.array([r.finish for r in h.requests])
+        if not np.allclose(fd, fh, rtol=0, atol=1e-9):
+            raise AssertionError(
+                f"{what} replica {b}: finish times differ by "
+                f"{np.abs(fd - fh).max():.3e} > 1e-9")
+        bitwise = bitwise and bits_equal(fd, fh)
+        if d.truncated or not all(math.isfinite(x) for x in fd):
+            raise AssertionError(f"{what} replica {b}: truncated or "
+                                 "non-finite")
+    return bitwise
+
+
+def check_ticks(res, launches: int, what: str) -> int:
+    """Every tick is one launch: B replicas move one event each per tick,
+    and the last tick may find every replica drained."""
+    ticks = max(r.n_events for r in res)
+    if not ticks <= launches <= ticks + 1:
+        raise AssertionError(f"{what}: event_step launches ({launches}) do "
+                             f"not match the run's ticks ({ticks})")
+    return ticks
+
+
+def profile_split(phases, keys) -> dict:
+    return {k: {"total_s": phases[k]["total_s"], "count": phases[k]["count"],
+                "mean_us": phases[k]["mean_us"]}
+            for k in keys if k in phases}
 
 
 def phase_run_batch(args):
@@ -920,30 +981,9 @@ def phase_run_batch(args):
     host_res = haf_static(engine="numpy")
     host_wall = time.perf_counter() - t0
 
-    if dev_res[0].engine != "cuda" or host_res[0].engine != "numpy":
-        raise AssertionError("run_batch did not use the engines asked for")
     events = sum(r.n_events for r in dev_res)
-    ticks = max(r.n_events for r in dev_res)
-    # every tick is one launch: B replicas move one event each per tick, and
-    # the last tick finds every replica drained
-    if not ticks <= launches <= ticks + 1:
-        raise AssertionError(
-            f"event_step launches ({launches}) do not match the run's "
-            f"ticks ({ticks})")
-    bitwise = True
-    for b, (d, h) in enumerate(zip(dev_res, host_res)):
-        if fingerprint(d) != fingerprint(h):
-            raise AssertionError(f"replica {b}: discrete outcomes differ "
-                                 "between the cuda and numpy engines")
-        fd = np.array([r.finish for r in d.requests])
-        fh = np.array([r.finish for r in h.requests])
-        if not np.allclose(fd, fh, rtol=0, atol=1e-9):
-            raise AssertionError(
-                f"replica {b}: finish times differ by "
-                f"{np.abs(fd - fh).max():.3e} > 1e-9")
-        bitwise = bitwise and bits_equal(fd, fh)
-        if d.truncated or not all(math.isfinite(x) for x in fd):
-            raise AssertionError(f"replica {b}: truncated or non-finite")
+    check_ticks(dev_res, launches, "run_batch")
+    bitwise = hold_engines(dev_res, host_res, "run_batch")
     overall = [r.summary()["overall"] for r in dev_res]
     if not all(0.0 < x <= 1.0 for x in overall):
         raise AssertionError(f"fulfillment out of range: {overall}")
@@ -958,11 +998,9 @@ def phase_run_batch(args):
         raise AssertionError("profiled run: ticks and launches disagree")
     if [fingerprint(r) for r in prof_res] != [fingerprint(r) for r in dev_res]:
         raise AssertionError("profiled run changed the outcome")
-    split = {k: {"total_s": phases[k]["total_s"],
-                 "mean_us": phases[k]["mean_us"]}
-             for k in ("core.h2d", "core.kernel", "core.d2h", "engine.step",
-                       "engine.events", "allocator.solve", "run")
-             if k in phases}
+    split = profile_split(phases, ("core.h2d", "core.kernel", "core.d2h",
+                                   "engine.step", "engine.events",
+                                   "allocator.solve", "run"))
     emit("run_batch", family="dense-urban", n_nodes=args.nodes, S=S, B=B,
          n_ai_requests=args.requests,
          cut=(f"n_ai_requests {FULL_REQUESTS} -> {args.requests} (run time); "
@@ -975,6 +1013,238 @@ def phase_run_batch(args):
          finish_bitwise_equal=bitwise,
          mean_overall_fulfillment=float(np.mean(overall)),
          profiled_split=split)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b: the paper's method on the main path — the epoch step of HAF
+# --------------------------------------------------------------------------- #
+def samples_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and bits_equal(x, y)
+        for sa, sb in zip(a, b) for x, y in zip(sa, sb))
+
+
+def masked_l2(pred: np.ndarray, r: np.ndarray, m: np.ndarray) -> float:
+    """Eq. 10 on a fixed set: the training loss's own masked L2."""
+    return float(np.sum((pred - r) ** 2 * m) / max(float(np.sum(m)), 1.0))
+
+
+def baseline_methods():
+    """(placement, allocation, rr_dispatch) factories of the five baselines,
+    composed as the reference's method registry composes them."""
+    return {
+        "haf-static": lambda: (StaticPlacement(), DeadlineAwareAllocation(),
+                               False),
+        "round-robin": lambda: (StaticPlacement(),
+                                baselines.EqualShareAllocation(), True),
+        "lyapunov": lambda: (baselines.LyapunovPlacement(V=0.25),
+                             baselines.MaxWeightAllocation(), False),
+        "game-theory": lambda: (baselines.GameTheoryPlacement(toll=0.1),
+                                baselines.MarketAllocation(), False),
+        "caora": lambda: (StaticPlacement(),
+                          baselines.AlphaSplitAllocation(0.5), False),
+    }
+
+
+def phase_haf(args):
+    """Harvest → train on the card → HAF critic-gated on the cuda engine
+    against the numpy engine → the five baselines → spot churn."""
+    phase_t0 = time.perf_counter()
+    sc = make_scenario("paper", seed=0)
+    cut = {"bulk_requests": args.harvest_bulk,
+           "probe_requests": args.harvest_probe}
+
+    # 1. the critic's training data, harvested through run_batch blocks of
+    # random and scripted migrations on both engines
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    samples = datagen.harvest(sc, engine="cuda", **cut)
+    torch.cuda.synchronize()
+    harvest_cuda_s = time.perf_counter() - t0
+    harvest_launches = ops.launch_counts()["event_step"]
+    t0 = time.perf_counter()
+    host_samples = datagen.harvest(sc, engine="numpy", **cut)
+    harvest_numpy_s = time.perf_counter() - t0
+    if not samples_equal(samples, host_samples):
+        raise AssertionError("harvest: the cuda engine's samples are not "
+                             "bitwise the numpy engine's")
+    if harvest_launches == 0:
+        raise AssertionError("harvest: the cuda engine launched no kernel")
+
+    # 2. the critic, trained on the card on a fixed 80 / 20 split
+    n = len(samples)
+    order = np.random.default_rng(0).permutation(n)
+    n_train = int(0.8 * n)
+    train = [samples[i] for i in order[:n_train]]
+    held = critic_mod.stack_samples([samples[i] for i in order[n_train:]])
+    fit = critic_mod.stack_samples(train)
+    hyper = {"hidden": 64, "batch": 256, "epochs": args.critic_epochs,
+             "seed": 0, "lr": 1e-3}
+    t0 = time.perf_counter()
+    critic = critic_mod.train_critic(train, device="cuda", **hyper)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = args.critic_epochs * -(-n_train // hyper["batch"])
+    untrained = critic_mod.Critic(critic_mod.init_params(0, hyper["hidden"]))
+    with torch.no_grad():
+        net = critic_mod.CriticNet.from_params(critic.params, device=DEV)
+        pred_dev = net(torch.from_numpy(held[0]).to(DEV))
+    pred_dev = pred_dev.double().cpu().numpy()
+    pred_np = critic_mod.forward_np(critic.params_np, held[0])
+    fwd_err = float(np.abs(pred_dev - pred_np).max())
+    if fwd_err > 1e-5:
+        raise AssertionError(f"critic: the torch forward is {fwd_err:.3e} "
+                             "from forward_np (> 1e-5)")
+    loss = {
+        "train": masked_l2(critic_mod.forward_np(critic.params_np, fit[0]),
+                           fit[1], fit[2]),
+        "held_out": masked_l2(pred_np, held[1], held[2]),
+        "held_out_untrained": masked_l2(
+            critic_mod.forward_np(untrained.params_np, held[0]),
+            held[1], held[2])}
+    if not loss["held_out"] < loss["held_out_untrained"]:
+        raise AssertionError(f"critic: held-out loss did not fall: {loss}")
+    out_dir = os.path.join(HERE, "build", "haf")       # git-ignored
+    path = os.path.join(out_dir, "critic.json")
+    save_critic(critic, path, families=("paper",),
+                data_hash=datagen.samples_fingerprint(samples),
+                meta={**hyper, "n_samples": n_train, "device": "cuda"})
+    loaded = critic_mod.load_critic_cached(
+        path, expect_fingerprint=read_manifest(path)["fingerprint"])
+    resaved = os.path.join(out_dir, "critic_resaved.json")
+    loaded.save(resaved)
+    with open(path, "rb") as a, open(resaved, "rb") as b:
+        same_bytes = a.read() == b.read()
+    if loaded.fingerprint() != critic.fingerprint() or not same_bytes:
+        raise AssertionError("critic: save -> load did not keep the "
+                             "fingerprint and the file's bytes")
+
+    # 3. HAF (qwen3-32b-sim stand-in + that critic) on B seeds of the paper
+    # scenario at rho 1.0, on the cuda engine against the numpy engine
+    B = args.batch
+    workloads = [workload_for(sc, seed=s, n_ai_requests=args.haf_requests,
+                              rho=1.0)[0] for s in range(B)]
+    sim = Simulator(sc)                      # engine=None, device="cuda"
+
+    def haf(**kw):
+        return sim.run_batch(
+            workloads, lambda b: HAFPlacement(make_agent("qwen3-32b-sim"),
+                                              critic=critic),
+            lambda b: DeadlineAwareAllocation(), **kw)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dev_res = haf()
+    torch.cuda.synchronize()
+    dev_wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["event_step"]
+    t0 = time.perf_counter()
+    host_res = haf(engine="numpy")
+    host_wall = time.perf_counter() - t0
+    ticks = check_ticks(dev_res, launches, "haf")
+    bitwise = hold_engines(dev_res, host_res, "haf")
+    migrations = [len(r.migrations) for r in dev_res]
+    if sum(migrations) < 1:
+        raise AssertionError("haf: no replica migrated anything")
+    overall = [r.summary()["overall"] for r in dev_res]
+    if not all(0.0 < x <= 1.0 for x in overall):
+        raise AssertionError(f"haf: fulfillment out of range: {overall}")
+    events = sum(r.n_events for r in dev_res)
+    before = ops.launch_counts()["event_step"]
+    prof_res = haf(obs=obs.ObsConfig(profile=True))
+    if ops.launch_counts()["event_step"] - before != launches \
+            or [fingerprint(r) for r in prof_res] != \
+            [fingerprint(r) for r in dev_res]:
+        raise AssertionError("haf: the profiled run changed the outcome")
+    phases = prof_res[0].profile["phases"]
+    split = profile_split(phases, (
+        "epoch.decide", "engine.step", "engine.events", "allocator.solve",
+        "core.h2d", "core.kernel", "core.d2h", "run"))
+
+    # 4. the five baselines on the same seeds, on the cuda engine
+    methods = {}
+    for name, make in baseline_methods().items():
+        made = [make() for _ in range(B)]
+        t0 = time.perf_counter()
+        res = sim.run_batch(workloads, [m[0] for m in made],
+                            [m[1] for m in made], rr_dispatch=made[0][2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        slo = [r.summary()["overall"] for r in res]
+        if res[0].engine != "cuda" or not all(0.0 < x <= 1.0 for x in slo):
+            raise AssertionError(f"{name}: engine {res[0].engine} or "
+                                 f"fulfillment out of range: {slo}")
+        methods[name] = {"mean_overall_fulfillment": float(np.mean(slo)),
+                         "migrations_per_replica": float(np.mean(
+                             [len(r.migrations) for r in res])),
+                         "wall_s": wall}
+
+    # 5. spot churn: preemptions force migrations the critic-gated HAF must
+    # make on both engines alike
+    churn_sc = make_scenario("spot-churn", seed=0,
+                             n_ai_requests=args.haf_requests)
+    churn_wl = [workload_for(churn_sc, seed=s,
+                             n_ai_requests=args.haf_requests)[0]
+                for s in range(CHURN_B)]
+    churn_sim = Simulator(churn_sc)
+
+    def churn(**kw):
+        return churn_sim.run_batch(
+            churn_wl, lambda b: HAFPlacement(make_agent("qwen3-32b-sim"),
+                                             critic=critic),
+            lambda b: DeadlineAwareAllocation(), **kw)
+
+    ops.reset_launch_counts()
+    churn_dev = churn()
+    churn_launches = ops.launch_counts()["event_step"]
+    churn_host = churn(engine="numpy")
+    check_ticks(churn_dev, churn_launches, "spot-churn")
+    churn_bitwise = hold_engines(churn_dev, churn_host, "spot-churn")
+
+    emit("haf", wall_s=time.perf_counter() - phase_t0, family="paper",
+         S=len(sc["instances"]), B=B,
+         n_ai_requests=args.haf_requests, rho=1.0,
+         cut={"n_ai_requests": (
+                  f"{HAF_FULL_REQUESTS} (experiments/paper_table3.toml) -> "
+                  f"{args.haf_requests} (run time); S, B and the scenario "
+                  "full" if args.haf_requests < HAF_FULL_REQUESTS else None),
+              "harvest": (f"bulk_requests 2500 -> {args.harvest_bulk}, "
+                          f"probe_requests 1500 -> {args.harvest_probe}"),
+              "critic_epochs": (f"2000 -> {args.critic_epochs}"
+                                if args.critic_epochs < 2000 else None)},
+         harvest={"samples": n, "cuda_s": harvest_cuda_s,
+                  "numpy_s": harvest_numpy_s,
+                  "event_step_launches": harvest_launches,
+                  "samples_bitwise_equal": True,
+                  "fingerprint": datagen.samples_fingerprint(samples)},
+         critic={**hyper, "n_train": n_train, "n_held_out": n - n_train,
+                 "steps": steps, "wall_s": train_s,
+                 "steps_per_s": steps / train_s, "loss": loss,
+                 "torch_vs_forward_np_max_abs": fwd_err,
+                 "fingerprint": critic.fingerprint(),
+                 "save_load_bytes_equal": same_bytes},
+         method="haf(qwen3-32b-sim + critic)", ticks=ticks,
+         launches=launches, events=events,
+         cuda={"wall_s": dev_wall, "events_per_s": events / dev_wall},
+         numpy={"wall_s": host_wall, "events_per_s": events / host_wall},
+         fingerprints_equal=True, finish_atol=1e-9,
+         finish_bitwise_equal=bitwise,
+         mean_overall_fulfillment=float(np.mean(overall)),
+         migrations_per_replica=float(np.mean(migrations)),
+         profiled_split=split,
+         epoch_decide_share=(phases["epoch.decide"]["total_s"]
+                             / phases["run"]["total_s"]),
+         baselines=methods,
+         spot_churn={"B": CHURN_B, "launches": churn_launches,
+                     "fingerprints_equal": True,
+                     "finish_bitwise_equal": churn_bitwise,
+                     "mig_forced": sum(r.summary()["mig_forced"]
+                                       for r in churn_dev),
+                     "migrations": sum(len(r.migrations)
+                                       for r in churn_dev),
+                     "mean_overall_fulfillment": float(np.mean(
+                         [r.summary()["overall"] for r in churn_dev]))})
     return launches
 
 
@@ -1282,6 +1552,20 @@ def main() -> None:
                         "host; S and B are never cut)")
     p.add_argument("--alloc-n", type=int, default=16384,
                    help="node rows of the fleet-wide allocator solve")
+    p.add_argument("--haf-requests", type=int, default=700,
+                   help="n_ai_requests per replica of phase haf (default: "
+                        f"700 of paper_table3's {HAF_FULL_REQUESTS}, which "
+                        "keeps the phase near three minutes; S, B and the "
+                        "scenario are never cut)")
+    p.add_argument("--harvest-bulk", type=int, default=800,
+                   help="bulk_requests of the critic's harvest (default "
+                        "2500 in the reference)")
+    p.add_argument("--harvest-probe", type=int, default=500,
+                   help="probe_requests of the critic's harvest (default "
+                        "1500 in the reference)")
+    p.add_argument("--critic-epochs", type=int, default=2000,
+                   help="training epochs of the critic (the reference's "
+                        "2000)")
     args = p.parse_args()
 
     # float32 products in full float32 everywhere (the defaults for matmul,
@@ -1306,6 +1590,7 @@ def main() -> None:
     event, alloc = phase_kernels(args)
     model_kernels = phase_model_kernels()
     event_launches = phase_run_batch(args)
+    haf_launches = phase_haf(args)
     alloc_launches = phase_allocate_cluster(args)
     served = phase_serve()
 
@@ -1323,10 +1608,14 @@ def main() -> None:
 
     mk = model_kernels
     print(json.dumps({"kernels": [
-        row("event_step", event, event_launches,
-            "src/repro/kernels/event_step.py:34",
-            "bit-for-bit (torch.equal on all five outputs)",
-            "Simulator.run_batch, one launch per tick"),
+        dict(row("event_step", event, event_launches + haf_launches,
+                 "src/repro/kernels/event_step.py:34",
+                 "bit-for-bit (torch.equal on all five outputs)",
+                 "Simulator.run_batch, one launch per tick: HAF-Static on "
+                 "dense-urban (phase run_batch) and HAF critic-gated on "
+                 "paper (phase haf)"),
+             launches_by_path={"run_batch": event_launches,
+                               "haf": haf_launches}),
         dict(row("alloc_active_set", alloc, alloc_launches,
                  "src/repro/kernels/alloc_active_set.py:31",
                  "rtol=1e-4, atol=capacity*1e-5 (f32 sums in another order; "

@@ -102,7 +102,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
     the families the port serves (``dense``, ``ssm``) have this layout."""
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            "(ROADMAP Queue A, model zoo)")
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     params = tree_map(

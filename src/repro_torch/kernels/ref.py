@@ -32,13 +32,18 @@ def _stage_time(rem: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
     return torch.where(rem > 0.0, rem / rate, torch.zeros_like(rem))
 
 
+# Row minima are ``torch.amin``, not ``torch.min(dim=...)``: on the CPU the
+# latter enters an OpenMP region even for a [B, S] block of a few dozen
+# lanes, whose spinning threads slow a busy host's every tick ~1000-fold.
+
+
 def first_index_of(cand: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     """First index along the last axis where ``cand == value`` —
     ``np.argmin``'s tie-break, which ``torch.argmin`` does not promise."""
     S = cand.shape[-1]
     lane = torch.arange(S, device=cand.device)
     hit = torch.where(cand == value.unsqueeze(-1), lane, S)
-    return torch.min(hit, dim=-1).values
+    return torch.amin(hit, dim=-1)
 
 
 def next_completion_ref(rem_g: torch.Tensor, rem_c: torch.Tensor,
@@ -50,7 +55,7 @@ def next_completion_ref(rem_g: torch.Tensor, rem_c: torch.Tensor,
     nothing can complete (``sid`` is then 0, the first index)."""
     cand = t + (_stage_time(rem_g, alloc_g) + _stage_time(rem_c, alloc_c))
     cand = torch.where(avail, cand, torch.full_like(cand, torch.inf))
-    t_next, _ = torch.min(cand, dim=0)
+    t_next = torch.amin(cand, dim=0)
     sid = first_index_of(cand, t_next)
     return t_next, sid
 
@@ -92,7 +97,7 @@ def event_step_ref(rem_g: torch.Tensor, rem_c: torch.Tensor,
     t_col = t[:, None]
     cand = t_col + (_stage_time(rem_g, alloc_g) + _stage_time(rem_c, alloc_c))
     cand = torch.where(avail, cand, torch.full_like(cand, torch.inf))
-    t_comp = torch.min(cand, dim=1).values
+    t_comp = torch.amin(cand, dim=1)
     sid = first_index_of(cand, t_comp).to(torch.int32)
 
     t_next = torch.minimum(t_comp, t_ev)

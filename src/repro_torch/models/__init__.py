@@ -8,5 +8,5 @@
   api          ``Model`` and ``build_model``: the serving path
 
 Ported families: ``dense`` and ``ssm``.  MoE, MLA, hybrid, encoder-decoder
-and VLM follow (ROADMAP Queue A item 7).
+and VLM follow (ROADMAP Queue A, model zoo).
 """

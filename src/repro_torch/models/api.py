@@ -14,7 +14,7 @@ eager torch composite path, ``"flash"`` sends causal self-attention to the
 hand-written ``flash_attention`` kernel and ``"pallas"`` sends the SSD scan
 to the hand-written ``ssd_scan`` kernel.  Families ``dense`` and ``ssm`` are
 ported; the others, ``loss`` and the training path are not yet (ROADMAP
-Queue A items 7 and 8) and raise.
+Queue A, model zoo and training) and raise.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``build_model(..., device=None)`` means ``"cuda"`` and raises

@@ -8,7 +8,7 @@ Twin of the GQA part of the reference's ``models/attention.py``.  Lowerings:
     ``flash_attention`` kernel, for causal self-attention;
   * decode — one query position against a cache.
 
-MLA and ``gqa_cross_decode`` are not ported yet (ROADMAP Queue A item 7).
+MLA and ``gqa_cross_decode`` are not ported yet (ROADMAP Queue A, model zoo).
 Decode writes the new key / value row into the cache tensors in place and
 returns them, where the reference returns updated copies: the port saves
 copying the whole cache on every generated token.

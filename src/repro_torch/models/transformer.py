@@ -6,7 +6,7 @@ loop (``common.scan_layers``); caches keep the reference's stacked layout
 ``{"layers": {"k", "v": [L, B, S, KV, hd]}}``.
 
 MoE, MLA, multi-token prediction and the VLM backbone are not ported yet
-(ROADMAP Queue A item 7); every entry point raises ``NotImplementedError``
+(ROADMAP Queue A, model zoo); every entry point raises ``NotImplementedError``
 for a config that needs them rather than running another path.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ from repro_torch.models.common import (ParamDef, mlp_defs, rms_norm,
 
 Tree = Any
 
-NOT_PORTED = "not ported yet (ROADMAP Queue A item 7, 'remaining')"
+NOT_PORTED = "not ported yet (ROADMAP Queue A, model zoo)"
 
 
 def check_dense(cfg: ArchConfig) -> None:

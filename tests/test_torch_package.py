@@ -32,6 +32,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     names = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.sim.engine",
             "repro_torch.core.allocator", "repro_torch.convert",
+            "repro_torch.core.critic", "repro_torch.core.controller",
+            "repro_torch.core.datagen", "repro_torch.faults.retry",
+            "repro_torch.sim.tracefile", "repro_torch.exp.artifacts",
             "repro_torch.obs.profile", "repro_torch.models.api",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan",
@@ -91,6 +94,10 @@ else:
     "__import__('repro_torch.convert', fromlist=['convert']).params_from_numpy("
     "__import__('repro_torch.configs', fromlist=['configs'])"
     ".get_config('qwen2-0.5b'), {})",
+    "__import__('repro_torch.core.critic', fromlist=['critic']).train_critic("
+    "[(__import__('numpy').zeros(40, 'float32'),) * 3] * 4, epochs=1)",
+    "__import__('repro_torch.core.datagen', fromlist=['datagen'])"
+    ".harvest(sc, bulk_requests=20, probe_requests=20)",
 ))
 def test_default_entry_points_need_cuda_and_say_so(call):
     """No silent CPU run: without a card the device engines raise."""

@@ -22,10 +22,9 @@ import repro_torch.sim.engine as port_engine
 import repro_torch.sim.types as port_types
 from repro_torch import convert
 
-# the trace and spot-churn families need sim/tracefile and faults/, which
-# are not ported yet
 FAMILIES = ("dense-urban", "diurnal", "diurnal-flash", "flash-crowd",
-            "heavy-tail", "node-outage", "paper", "skewed-hetero")
+            "heavy-tail", "node-outage", "paper", "skewed-hetero",
+            "spot-churn", "trace")
 SLOW_FAMILIES = ("paper", "node-outage", "dense-urban")
 SEEDS = (0, 1)
 BATCH_SEEDS = (0, 1, 2)
@@ -113,13 +112,6 @@ def test_scenario_and_workload_equal(family, seed):
         [_plain(r) for r in ref_reqs]) == port_reqs
     assert convert.requests_from_records(
         [dataclasses.astuple(r) for r in ref_reqs[:5]]) == port_reqs[:5]
-
-
-def test_unported_families_fail_loudly():
-    for family in ("trace", "spot-churn"):
-        with pytest.raises(ImportError):
-            sc = port_sim.make_scenario(family, seed=0)
-            port_sim.workload_for(sc, seed=0, n_ai_requests=10)
 
 
 # --------------------------------------------------------------------------- #
