@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Seven phases, one JSON line each (phases 2 and 3 two); any failure ends the
+Eight phases, one JSON line each (phases 2 and 3 two); any failure ends the
 run with a non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
@@ -36,9 +36,31 @@ run with a non-zero exit code:
                        save -> load keeps fingerprint and bytes), HAF
                        (qwen3-32b-sim stand-in + that critic) on the paper
                        scenario at rho 1.0, B = 32, cuda against numpy as in
-                       phase 4 with >= 1 migration, the five baselines'
-                       SLO fulfilment beside HAF's, and spot-churn at B = 8
-                       cuda against numpy (forced migrations included)
+                       phase 4 with >= 1 migration, and spot-churn at B = 8
+                       cuda against numpy (forced migrations included); the
+                       five baselines' SLO fulfilment beside HAF's comes
+                       from phase eval's Table III
+  4c. eval             the experiment harness: the critic of phase haf saved
+                       into a fresh artifact store ($REPRO_ARTIFACTS), then
+                       experiments/paper_table3.toml, unchanged, through
+                       python -m repro_torch.eval (700 requests a replica,
+                       seeds 0..7, two spawn workers) on the default engine
+                       (cuda: six run_batch groups of B = 8) and with
+                       --engine numpy, into fresh reports: rows equal,
+                       nothing failed, truncated, resumed, retried or
+                       degraded, HAF above every baseline; HAF's group
+                       in-process through eval.sweep.run_batch_jobs with its
+                       event_step launches counted (= ticks + 1) and its
+                       traced finish times within 1e-9 of the numpy
+                       group's; the other two spec files validated,
+                       trace_sweep.toml run on one seed and the first 500
+                       rows of its trace (one-replica run_batch groups,
+                       streamed, traced, profiled) and a trace read back by
+                       python -m repro_torch.obs summary; the serving
+                       launcher repro_torch.launch.serve with the saved
+                       critic (its main() in-process: one-replica run_batch,
+                       event_step launches = ticks + 1); and a spawn
+                       worker's start-up
   5. allocate_cluster  the second path: the fleet-wide allocator through the
                        alloc_active_set kernel at (N, S) = (16384, 128)
                        against the float64 host solver, with the call's
@@ -68,14 +90,17 @@ request stream is half the reference bench's, which keeps the run to a few
 minutes; ``--requests 4960`` runs the whole stream.  Phase haf runs 700 of
 paper_table3's 5000 requests a replica (``--haf-requests``), a cut harvest
 (``--harvest-bulk``, ``--harvest-probe``) and the reference's 2000 training
-epochs (``--critic-epochs``).  The other options shrink
+epochs (``--critic-epochs``); phase eval runs paper_table3 at 700 requests a
+replica on seeds 0..7.  The other options shrink
 the run for a rehearsal; the served models always run at their configs' full
 width and depth.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -83,6 +108,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -105,9 +131,12 @@ from repro_torch.kernels.alloc_active_set import alloc_active_set_geometry
 from repro_torch.kernels.event_step import event_step_geometry
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
-from repro_torch.core import HAFPlacement, baselines, datagen, make_agent
+from repro_torch.core import HAFPlacement, datagen, make_agent
 from repro_torch.core import critic as critic_mod
+from repro_torch.eval import sweep
+from repro_torch.exp import ExperimentSpec, expand_experiment
 from repro_torch.exp.artifacts import read_manifest, save_critic
+from repro_torch.launch import serve
 from repro_torch.sim import Simulator, make_scenario, workload_for
 from repro_torch.sim.engine import DeadlineAwareAllocation, StaticPlacement
 from repro_torch.sim.event_core import NumpyBatchedEventCore
@@ -1030,26 +1059,10 @@ def masked_l2(pred: np.ndarray, r: np.ndarray, m: np.ndarray) -> float:
     return float(np.sum((pred - r) ** 2 * m) / max(float(np.sum(m)), 1.0))
 
 
-def baseline_methods():
-    """(placement, allocation, rr_dispatch) factories of the five baselines,
-    composed as the reference's method registry composes them."""
-    return {
-        "haf-static": lambda: (StaticPlacement(), DeadlineAwareAllocation(),
-                               False),
-        "round-robin": lambda: (StaticPlacement(),
-                                baselines.EqualShareAllocation(), True),
-        "lyapunov": lambda: (baselines.LyapunovPlacement(V=0.25),
-                             baselines.MaxWeightAllocation(), False),
-        "game-theory": lambda: (baselines.GameTheoryPlacement(toll=0.1),
-                                baselines.MarketAllocation(), False),
-        "caora": lambda: (StaticPlacement(),
-                          baselines.AlphaSplitAllocation(0.5), False),
-    }
-
-
 def phase_haf(args):
     """Harvest → train on the card → HAF critic-gated on the cuda engine
-    against the numpy engine → the five baselines → spot churn."""
+    against the numpy engine → spot churn.  The five baselines run in
+    phase eval, through the method registry, on the same scenario."""
     phase_t0 = time.perf_counter()
     sc = make_scenario("paper", seed=0)
     cut = {"bulk_requests": args.harvest_bulk,
@@ -1162,25 +1175,7 @@ def phase_haf(args):
         "epoch.decide", "engine.step", "engine.events", "allocator.solve",
         "core.h2d", "core.kernel", "core.d2h", "run"))
 
-    # 4. the five baselines on the same seeds, on the cuda engine
-    methods = {}
-    for name, make in baseline_methods().items():
-        made = [make() for _ in range(B)]
-        t0 = time.perf_counter()
-        res = sim.run_batch(workloads, [m[0] for m in made],
-                            [m[1] for m in made], rr_dispatch=made[0][2])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        slo = [r.summary()["overall"] for r in res]
-        if res[0].engine != "cuda" or not all(0.0 < x <= 1.0 for x in slo):
-            raise AssertionError(f"{name}: engine {res[0].engine} or "
-                                 f"fulfillment out of range: {slo}")
-        methods[name] = {"mean_overall_fulfillment": float(np.mean(slo)),
-                         "migrations_per_replica": float(np.mean(
-                             [len(r.migrations) for r in res])),
-                         "wall_s": wall}
-
-    # 5. spot churn: preemptions force migrations the critic-gated HAF must
+    # 4. spot churn: preemptions force migrations the critic-gated HAF must
     # make on both engines alike
     churn_sc = make_scenario("spot-churn", seed=0,
                              n_ai_requests=args.haf_requests)
@@ -1235,7 +1230,6 @@ def phase_haf(args):
          profiled_split=split,
          epoch_decide_share=(phases["epoch.decide"]["total_s"]
                              / phases["run"]["total_s"]),
-         baselines=methods,
          spot_churn={"B": CHURN_B, "launches": churn_launches,
                      "fingerprints_equal": True,
                      "finish_bitwise_equal": churn_bitwise,
@@ -1245,7 +1239,293 @@ def phase_haf(args):
                                        for r in churn_dev),
                      "mean_overall_fulfillment": float(np.mean(
                          [r.summary()["overall"] for r in churn_dev]))})
-    return launches
+    return launches, critic
+
+
+# --------------------------------------------------------------------------- #
+# phase 4c: the experiment harness — the paper's spec files on the card
+# --------------------------------------------------------------------------- #
+TABLE3 = "experiments/paper_table3.toml"
+EVAL_SEEDS, N_EVAL_SEEDS, EVAL_BATCH, EVAL_WORKERS = "0..7", 8, 8, 2
+# n_ai_requests a replica of paper_table3 (its file says 5000), of the
+# trace replay (a prefix of trace_sweep's 2000 rows) and of the serving
+# launcher's run: cut for run time, each run's shapes left whole
+EVAL_REQUESTS, TRACE_REQUESTS, SERVE_REQUESTS = 700, 500, 300
+# row columns that say how and how fast a row ran, not what it computed
+HOW = ("wall_s", "engine_wall_s", "events_per_sec", "engine", "batch", "b",
+       "profile", "trace_counts", "trace_path")
+
+# one spawn worker's start-up as the sweep pays it: import the sweep's
+# modules (torch, the simulator, the policies), start CUDA and find the
+# built kernels; run by ``python -c``, so no main file is re-imported
+SPAWN_PROBE = """
+import concurrent.futures as cf, multiprocessing as mp, time, torch
+from repro_torch.eval import sweep
+from repro_torch.kernels import _build
+t0 = time.perf_counter()
+with cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+    pool.submit(sweep.SweepSpec).result()
+    pool.submit(torch.cuda.init).result()
+    pool.submit(_build.build_all).result()
+print(time.perf_counter() - t0)
+"""
+
+
+def run_python(*argv, env):
+    """``python argv`` from the checkout's root; its stdout and wall s.  A
+    non-zero exit fails the phase with the command's output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *map(str, argv)], cwd=HERE,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"python {' '.join(map(str, argv))[:300]} exited "
+            f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+            f"{proc.stderr[-6000:]}")
+    return proc.stdout, wall
+
+
+def results(rows):
+    """Rows keyed (method, scenario, seed), without the how-it-ran columns."""
+    return {(r["method"], r["scenario"], r["seed"]):
+            {k: v for k, v in r.items() if k not in HOW} for r in rows}
+
+
+def hold_report(report, engine, n_runs, critic=None):
+    """A whole report of ``engine`` rows: nothing failed, truncated,
+    resumed, retried job by job or degraded, and the critic resolved."""
+    prov = report["provenance"]
+    rows = report["runs"]
+    if (report["n_runs"], report["n_failed"], report["n_truncated"],
+            prov["resumed_rows"]) != (n_runs, 0, 0, 0):
+        raise AssertionError(
+            f"{engine} report: runs {report['n_runs']} (want {n_runs}), "
+            f"failed {report['n_failed']}, truncated "
+            f"{report['n_truncated']}, resumed {prov['resumed_rows']}")
+    bad = [(r["method"], r["seed"]) for r in rows
+           if r["engine"] != engine or r.get("batch_fallback")
+           or r.get("critic_degraded")]
+    if bad:
+        raise AssertionError(f"{engine} report: rows not run as asked "
+                             f"(engine, batch fallback or critic): {bad}")
+    if critic is not None:
+        art = prov["artifacts"].get("@critic?", {})
+        if art.get("missing") or art.get("fingerprint") != \
+                critic.fingerprint():
+            raise AssertionError(f"{engine} report: the critic did not "
+                                 f"resolve to phase haf's: {art}")
+
+
+def sweep_rates(report, wall):
+    """Events, the command's wall s and events/s, and the engine's: the
+    sum of the groups' block walls (a row carries its block's)."""
+    rows = report["runs"]
+    events = sum(r["n_events"] for r in rows)
+    groups = {r["method"]: r["engine_wall_s"] for r in rows
+              if r.get("b", 0) == 0}
+    engine_s = sum(groups.values())
+    return {"events": events, "command_wall_s": wall,
+            "events_per_s": events / wall, "engine_wall_s": engine_s,
+            "engine_events_per_s": events / engine_s,
+            "report_wall_s": report["provenance"]["wall_s"],
+            "group_engine_wall_s": groups}
+
+
+def completions(path):
+    """(b, rid, class, deadline met) and finish time of every completion
+    in a trace."""
+    data = obs.load_jsonl(path)
+    recs = [e for e in data["events"] if e["kind"] == "completion"]
+    return ([(e["b"], e["rid"], e["cls"], e["ok"]) for e in recs],
+            np.array([e["t"] for e in recs]), data["header"])
+
+
+def phase_eval(critic):
+    """paper_table3.toml through ``python -m repro_torch.eval`` on the card
+    (the default engine) and on the host, one of its groups in-process with
+    its launches counted, the other two spec files, the obs CLI and the
+    serving launcher."""
+    phase_t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="eval-", dir=os.path.join(HERE, "build"))
+    store = os.path.join(work, "store")
+    critic_path = os.path.join(store, "critic.json")
+    save_critic(critic, critic_path, families=("paper",),
+                meta={"trained_by": "chip_smoke.py phase haf"})
+    os.environ["REPRO_ARTIFACTS"] = store
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+    # 1. spawn workers' start-up
+    out, _ = run_python("-c", SPAWN_PROBE, env=env)
+    spawn_s = float(out.strip().splitlines()[-1])
+
+    # 2. Table III on the card (no --engine: the spec's default, cuda) and
+    # on the host, each into a fresh report
+    cut = ["--requests", EVAL_REQUESTS, "--seeds", EVAL_SEEDS,
+           "--batch", EVAL_BATCH, "--workers", EVAL_WORKERS, "--no-resume"]
+    reports, rates = {}, {}
+    for engine, extra in (("cuda", []), ("numpy", ["--engine", "numpy"])):
+        path = os.path.join(work, f"table3_{engine}.json")
+        _, wall = run_python("-m", "repro_torch.eval", "--spec", TABLE3, *cut,
+                             *extra, "--out", path, env=env)
+        with open(path) as f:
+            reports[engine] = json.load(f)
+        n_methods = len(reports[engine]["provenance"]["spec"]["methods"])
+        hold_report(reports[engine], engine, n_methods * N_EVAL_SEEDS,
+                    critic)
+        rates[engine] = sweep_rates(reports[engine], wall)
+    dev, host = reports["cuda"], reports["numpy"]
+    if dev["provenance"]["backend"]["device"] != \
+            torch.cuda.get_device_name(0):
+        raise AssertionError(f"cuda report: backend "
+                             f"{dev['provenance']['backend']}")
+    if {r["batch"] for r in dev["runs"]} != {EVAL_BATCH}:
+        raise AssertionError("cuda report: rows not in groups of "
+                             f"{EVAL_BATCH}")
+    if results(dev["runs"]) != results(host["runs"]):
+        diff = [k for k, v in results(dev["runs"]).items()
+                if results(host["runs"]).get(k) != v]
+        raise AssertionError(f"Table III: cuda rows differ from numpy rows "
+                             f"at {diff[:6]}")
+    slo = {c["method"]: c["overall"]["mean"] for c in dev["aggregate"]}
+    if slo != {c["method"]: c["overall"]["mean"] for c in host["aggregate"]}:
+        raise AssertionError("Table III: per-method mean SLO differs")
+    if not all(slo["HAF"] > v for m, v in slo.items() if m != "HAF"):
+        raise AssertionError(f"Table III: HAF not above every baseline: "
+                             f"{slo}")
+
+    # 3. one group in-process through the sweep's own entry point: HAF,
+    # B = 8, traced, with its event_step launches counted, against the
+    # same group on the host engine
+    spec = ExperimentSpec.from_file(os.path.join(HERE, TABLE3)).replace(
+        n_ai_requests=EVAL_REQUESTS, seeds=tuple(range(N_EVAL_SEEDS)),
+        batch=EVAL_BATCH)
+    _, jobs, _ = expand_experiment(spec)
+    haf_jobs = [j for j in jobs if j["method"] == "haf"]
+
+    def group(engine):
+        return sweep.run_batch_jobs([dict(
+            j, engine=engine, trace=True, profile=engine == "cuda",
+            trace_dir=os.path.join(work, f"traces_{engine}"))
+            for j in haf_jobs])
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dev_rows = group("cuda")
+    torch.cuda.synchronize()
+    group_wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["event_step"]
+    host_rows = group("numpy")
+    ticks = check_ticks([types.SimpleNamespace(n_events=r["n_events"])
+                         for r in dev_rows], launches, "eval group")
+    kernel_calls = dev_rows[0]["profile"]["phases"]["core.kernel"]["count"]
+    if kernel_calls != launches:
+        raise AssertionError(f"eval group: profiled core.kernel calls "
+                             f"{kernel_calls} != launches {launches}")
+    want = {k: v for k, v in results(dev["runs"]).items() if k[0] == "HAF"}
+    if results(dev_rows) != want or results(host_rows) != want:
+        raise AssertionError("eval group: in-process HAF rows differ from "
+                             "the reports' HAF rows")
+    ids_d, fin_d, head_d = completions(dev_rows[0]["trace_path"])
+    ids_h, fin_h, head_h = completions(host_rows[0]["trace_path"])
+    if ids_d != ids_h or head_d["counts"] != head_h["counts"]:
+        raise AssertionError("eval group: traces' completions differ")
+    finish_err = float(np.abs(fin_d - fin_h).max()) if len(fin_d) else 0.0
+    if not finish_err <= 1e-9:
+        raise AssertionError(f"eval group: finish times differ by "
+                             f"{finish_err:.3e} > 1e-9")
+
+    # 4. the other spec files: both validate unchanged; trace_sweep runs
+    # seed 0 on the card, streamed, traced and profiled, and the obs CLI
+    # reads one of its traces back
+    for name in ("load_sweep", "trace_sweep"):
+        out, _ = run_python("-m", "repro_torch.eval", "--spec",
+                            f"experiments/{name}.toml", "--validate",
+                            "--out", os.path.join(work, f"{name}.json"),
+                            env=env)
+        if "nothing run" not in out or " cuda " not in out:
+            raise AssertionError(f"{name}: --validate said\n{out}")
+    trace_out = os.path.join(work, "trace_sweep.json")
+    _, trace_wall = run_python(
+        "-m", "repro_torch.eval", "--spec", "experiments/trace_sweep.toml",
+        "--seeds", "0,", "--requests", TRACE_REQUESTS, "--trace",
+        "--profile", "--no-resume",
+        "--out", trace_out, env=env)
+    with open(trace_out) as f:
+        trace_report = json.load(f)
+    n_trace = len(trace_report["provenance"]["spec"]["methods"]) \
+        * len(trace_report["provenance"]["spec"]["scenarios"])
+    hold_report(trace_report, "cuda", n_trace, critic)
+    for r in trace_report["runs"]:
+        phases = r["profile"]["phases"]
+        if "batch" in r or phases["core.kernel"]["count"] != \
+                r["n_events"] + 1:
+            raise AssertionError(f"trace_sweep {r['method']} @ "
+                                 f"{r['scenario']}: not a one-replica "
+                                 "kernel run (a launch a tick, and one)")
+    first = trace_report["runs"][0]
+    summary, _ = run_python("-m", "repro_torch.obs", "summary",
+                            first["trace_path"], env=env)
+    m = re.search(r"^\s+completion\s+(\d+)$", summary, re.M)
+    if not m or int(m.group(1)) != first["trace_counts"]["completion"]:
+        raise AssertionError(f"obs summary disagrees with the row's "
+                             f"trace counts:\n{summary}")
+
+    # 5. the serving launcher on the card with the saved critic: its
+    # main() in-process, so that its event_step launches are counted
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(["--requests", str(SERVE_REQUESTS),
+                          "--critic-path", critic_path])
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()["event_step"]
+    out = buf.getvalue()
+    served = json.loads(out[out.index("{"):out.index("}", out.index("{")) + 1])
+    if res.engine != "cuda" or res.truncated \
+            or serve_launches != res.n_events + 1:
+        raise AssertionError(f"serve: engine {res.engine}, truncated "
+                             f"{res.truncated}, event_step launches "
+                             f"{serve_launches} for {res.n_events} ticks "
+                             "(want ticks + 1)")
+    if not 0.0 < served["overall"] <= 1.0:
+        raise AssertionError(f"serve: summary out of range: {served}")
+
+    emit("eval", wall_s=time.perf_counter() - phase_t0,
+         spec=TABLE3, n_ai_requests=EVAL_REQUESTS, seeds=EVAL_SEEDS,
+         batch=EVAL_BATCH, workers=EVAL_WORKERS,
+         cut=(f"n_ai_requests {HAF_FULL_REQUESTS} -> {EVAL_REQUESTS}, "
+              "seeds [0] -> 0..7, workers 4 -> 2 (run time); trace_sweep "
+              f"seeds [0, 1] -> 0, its 2000 rows -> {TRACE_REQUESTS}"),
+         runs=dev["n_runs"], rows_equal=True, finish_atol=1e-9,
+         spawn_worker_start_s=spawn_s, cuda=rates["cuda"],
+         numpy=rates["numpy"],
+         slo={m: v for m, v in sorted(slo.items())},
+         group={"method": "HAF", "B": EVAL_BATCH, "ticks": ticks,
+                "launches": launches, "wall_s": group_wall,
+                "finish_max_abs_diff": finish_err,
+                "finish_bitwise_equal": bits_equal(fin_d, fin_h),
+                "completions": len(fin_d),
+                "trace_ring_dropped": head_d["n_dropped"]},
+         trace_sweep={"runs": trace_report["n_runs"], "wall_s": trace_wall,
+                      "events": sum(r["n_events"]
+                                    for r in trace_report["runs"]),
+                      "slo": {c["method"] + " @ " + c["scenario"]:
+                              c["overall"]["mean"]
+                              for c in trace_report["aggregate"]}},
+         serve={"requests": SERVE_REQUESTS, "wall_s": serve_wall,
+                "engine": res.engine, "ticks": res.n_events,
+                "launches": serve_launches,
+                "events_per_s": res.n_events / serve_wall,
+                "overall": served["overall"],
+                "mig_total": served["mig_total"]},
+         nvidia_smi=nvidia_smi_line())
+    shutil.rmtree(work)          # reports and traces: ~100 MB a run
+    return launches, serve_launches
 
 
 # --------------------------------------------------------------------------- #
@@ -1590,7 +1870,8 @@ def main() -> None:
     event, alloc = phase_kernels(args)
     model_kernels = phase_model_kernels()
     event_launches = phase_run_batch(args)
-    haf_launches = phase_haf(args)
+    haf_launches, critic = phase_haf(args)
+    eval_launches, serve_launches = phase_eval(critic)
     alloc_launches = phase_allocate_cluster(args)
     served = phase_serve()
 
@@ -1608,14 +1889,21 @@ def main() -> None:
 
     mk = model_kernels
     print(json.dumps({"kernels": [
-        dict(row("event_step", event, event_launches + haf_launches,
+        dict(row("event_step", event,
+                 event_launches + haf_launches + eval_launches
+                 + serve_launches,
                  "src/repro/kernels/event_step.py:34",
                  "bit-for-bit (torch.equal on all five outputs)",
                  "Simulator.run_batch, one launch per tick: HAF-Static on "
-                 "dense-urban (phase run_batch) and HAF critic-gated on "
-                 "paper (phase haf)"),
+                 "dense-urban (phase run_batch), HAF critic-gated on paper "
+                 "(phase haf), the sweep harness's HAF group of "
+                 "paper_table3 (phase eval, eval.sweep.run_batch_jobs) and "
+                 "the serving launcher's solo run (phase eval, a "
+                 "one-replica block)"),
              launches_by_path={"run_batch": event_launches,
-                               "haf": haf_launches}),
+                               "haf": haf_launches,
+                               "eval": eval_launches,
+                               "serve": serve_launches}),
         dict(row("alloc_active_set", alloc, alloc_launches,
                  "src/repro/kernels/alloc_active_set.py:31",
                  "rtol=1e-4, atol=capacity*1e-5 (f32 sums in another order; "

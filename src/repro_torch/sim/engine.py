@@ -11,15 +11,17 @@ queue at its allocated rate with strict stage ordering (GPU work first,
 then CPU — Eq. 1), so the next completion time is computable in closed
 form and nothing happens between events.  The per-event hot pair
 (``next_completion``/``advance``) runs on an interchangeable event core
-(``engine="numpy" | "scalar" | "torch"``, see
-:mod:`repro_torch.sim.event_core`); ``run_batch`` adds ``"cuda"``, the
-hand-written ``event_step`` kernel, which is its default.
+(``engine="numpy" | "scalar" | "torch" | "cuda"``, see
+:mod:`repro_torch.sim.event_core`); ``"cuda"``, the hand-written
+``event_step`` kernel, is the default, and a solo ``run`` on it is a
+one-replica ``run_batch``.
 Expired not-yet-started requests are dropped when they reach the head
 (admission control; counted as unfulfilled).
 
 Two run loops share one per-replica event machine (:class:`_Replica`):
 
-  * :meth:`Simulator.run` — the classic single-trace loop,
+  * :meth:`Simulator.run` — the classic single-trace loop (host and
+    ``torch`` engines; on ``cuda`` a one-replica ``run_batch``),
   * :meth:`Simulator.run_batch` — B independent replicas (seeds of one
     scenario × method cell) advance in lockstep over ``[B, S]`` blocks:
     each replica keeps its own clock ``t[b]`` and event heap, while
@@ -893,12 +895,13 @@ class Simulator:
                  drop_expired: bool = False, seed: int = 0,
                  engine: Optional[str] = None, obs=None,
                  device="cuda"):
-        """``engine=None`` runs on ``device``: ``run_batch`` through the
-        hand-written kernel core (``"cuda"``), solo ``run`` through the
-        eager float64 torch core (``"torch"``).  ``engine="numpy"`` /
-        ``"scalar"`` are the host engines and ignore ``device``.  A CUDA
-        ``device`` that is not available raises ``RuntimeError`` for the
-        device engines — nothing carries on on the CPU by itself."""
+        """``engine=None`` is ``"cuda"``: ``run_batch`` and solo ``run``
+        (a one-replica ``run_batch``) on ``device`` through the
+        hand-written kernel core.  ``engine="torch"`` is the eager float64
+        torch core on ``device``; ``engine="numpy"`` / ``"scalar"`` are the
+        host engines and ignore ``device``.  A CUDA ``device`` that is not
+        available raises ``RuntimeError`` for the device engines — nothing
+        carries on on the CPU by itself."""
         self.scenario = scenario
         self.epoch_interval = epoch_interval
         self.drop_expired = drop_expired
@@ -910,8 +913,7 @@ class Simulator:
         # to the uninstrumented engine).  run()/run_batch() can override.
         self.obs = obs
         # fail fast on unknown names and on a device that is not there;
-        # "cuda" is batch-only, so it validates against the batched
-        # registry and run() rejects it
+        # "cuda" is a batched core only (run() takes it as a block of one)
         if engine is None or engine == "cuda":
             make_batched_event_core("cuda", device)
         else:
@@ -929,12 +931,18 @@ class Simulator:
         """Run one trace.  ``requests`` is a list OR an ArrivalStream;
         ``retain_requests=False`` drops the per-request list from the
         result (summaries come from the streaming accumulators) — with a
-        windowed stream the whole run is then O(S + window) memory."""
-        if self.engine == "cuda":
-            raise ValueError(
-                "engine='cuda' is the batched [B, S] kernel backend; "
-                "use run_batch, or engine='torch' for single traces")
-        engine_name = self.engine or "torch"
+        windowed stream the whole run is then O(S + window) memory.
+
+        On ``engine=None`` / ``"cuda"`` the trace runs as a one-replica
+        :meth:`run_batch` (solo ≡ batched): one ``event_step`` launch a
+        tick."""
+        if self.engine is None or self.engine == "cuda":
+            return self.run_batch(
+                [requests], [placement], [allocation],
+                rr_dispatch=rr_dispatch, max_events=max_events,
+                epoch_hooks=[epoch_hook], engine="cuda",
+                retain_requests=retain_requests, obs=obs)[0]
+        engine_name = self.engine
         observer = _obs.make_observer(obs if obs is not None else self.obs,
                                       B=1, engine=engine_name)
         rep = _Replica(self.scenario, self.epoch_interval, self.drop_expired,

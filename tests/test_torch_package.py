@@ -38,7 +38,12 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
             "repro_torch.obs.profile", "repro_torch.models.api",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan",
-            "repro_torch.kernels.rmsnorm"} <= set(names)
+            "repro_torch.kernels.rmsnorm", "repro_torch.exp.grammar",
+            "repro_torch.exp.spec", "repro_torch.exp.provenance",
+            "repro_torch.exp.runner", "repro_torch.eval.policies",
+            "repro_torch.eval.sweep", "repro_torch.eval.report",
+            "repro_torch.eval.cli", "repro_torch.obs.cli",
+            "repro_torch.launch.serve"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -98,6 +103,16 @@ else:
     "[(__import__('numpy').zeros(40, 'float32'),) * 3] * 4, epochs=1)",
     "__import__('repro_torch.core.datagen', fromlist=['datagen'])"
     ".harvest(sc, bulk_requests=20, probe_requests=20)",
+    "__import__('repro_torch.eval', fromlist=['eval']).run_sweep("
+    "__import__('repro_torch.eval', fromlist=['eval']).SweepSpec("
+    "n_ai_requests=20))",
+    "__import__('repro_torch.exp', fromlist=['exp']).run_experiment("
+    "__import__('repro_torch.exp', fromlist=['exp']).ExperimentSpec("
+    "methods=('haf-static',), scenarios=('paper',), seeds=(0,), "
+    "n_ai_requests=20))",
+    "__import__('repro_torch.eval', fromlist=['eval']).run_sweep("
+    "__import__('repro_torch.eval', fromlist=['eval']).SweepSpec("
+    "engine='torch', n_ai_requests=20))",
 ))
 def test_default_entry_points_need_cuda_and_say_so(call):
     """No silent CPU run: without a card the device engines raise."""
@@ -106,6 +121,31 @@ def test_default_entry_points_need_cuda_and_say_so(call):
     proc = _run(_DEFAULT_RUN.format(call=call))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "raised"
+
+
+@pytest.mark.parametrize("argv", (
+    ["repro_torch.eval", "--smoke", "--workers", "1"],
+    ["repro_torch.eval", "--spec", "experiments/paper_table3.toml",
+     "--requests", "20", "--workers", "1"],
+    ["repro_torch.launch.serve", "--requests", "20", "--no-critic"],
+))
+def test_default_command_lines_need_cuda_and_say_so(argv, tmp_path):
+    """``python -m repro_torch.eval`` with no ``--engine`` (the spec's
+    ``cuda``) and the serving launcher raise naming CUDA, write no report
+    and never fall back to the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run on it")
+    out = tmp_path / "report.json"
+    if argv[0] == "repro_torch.eval":
+        argv = argv + ["--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_ARTIFACTS=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-m", *argv], env=env, text=True,
+                          capture_output=True, timeout=300,
+                          cwd=pathlib.Path(SRC).parent)
+    assert proc.returncode != 0
+    assert "RuntimeError" in proc.stderr and "CUDA" in proc.stderr
+    assert "JOB FAILED" not in proc.stdout
+    assert not out.exists()
 
 
 def test_host_engines_ignore_the_missing_device():
