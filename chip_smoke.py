@@ -23,7 +23,8 @@ run with a non-zero exit code:
                        shapes that end in a partial tile, have odd rows, and
                        sit on either side of its two routes' border), with
                        times: CUDA events, warm-up, >= 20 launches, and
-                       torch.profiler's device time and launches a call
+                       torch.profiler's device time and launches a call (the
+                       launches from the trace's host-side launch records)
   4. run_batch         the main path: Simulator.run_batch, HAF-Static, the
                        dense-urban fleet at n_nodes=480 (S = 1440 instances),
                        B = 32 replicas, default engine (the event_step kernel),
@@ -66,15 +67,25 @@ run with a non-zero exit code:
                        against the float64 host solver, with the call's
                        device time by torch.profiler
   6. serve             the model zoo's serving path, build_model -> init ->
-                       prefill -> pad_cache -> greedy decode_step, for
-                       qwen2-0.5b (impl="flash", the flash_attention kernel)
-                       and mamba2-130m (impl="pallas", the ssd_scan kernel)
-                       at full width and depth: float32 parity with
-                       impl="xla", prefill + decode == forward, then 4
-                       requests of 512 tokens served in the config's bf16
+                       prefill -> pad_cache -> greedy decode_step, for every
+                       config of configs/: qwen2-0.5b, whisper-medium and
+                       llava-next-mistral-7b (impl="flash": flash_attention),
+                       mamba2-130m (impl="pallas": ssd_scan), zamba2-2.7b
+                       under both (9 flash launches, or 54 ssd_scan calls,
+                       a prefill), deepseek-v2-lite-16b (impl="flash": MLA
+                       reaches no kernel, 0 launches asserted) and
+                       deepseek-v3-671b (impl="xla", 4 of 61 layers), each
+                       at full width: float32 parity with impl="xla" (caches
+                       too) at S = 512 and 300 where the path has a kernel,
+                       prefill + decode == forward,
+                       then 4 requests of 512 tokens (llava: after 576 patch
+                       embeddings; whisper: beside 1500 encoder frames)
+                       served in the config's bf16, kernel launches a
+                       prefill asserted per model
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
-versions and times them beside PyTorch's own call for the same function
+versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
+d_state 64) and times them beside PyTorch's own call for the same function
 (flash_attention in bf16, its tensor-core design, and in float32, its
 CUDA-core design; ssd_scan in bf16, its three-launch tensor-core design, held
 both to the sequential recurrence and to ssd_scan_chunked_ref with the
@@ -93,7 +104,8 @@ paper_table3's 5000 requests a replica (``--haf-requests``), a cut harvest
 epochs (``--critic-epochs``); phase eval runs paper_table3 at 700 requests a
 replica on seeds 0..7.  The other options shrink
 the run for a rehearsal; the served models always run at their configs' full
-width and depth.
+width, and at full depth but where a model does not fit one card (phase
+serve's SERVE says which depths are cut).
 """
 from __future__ import annotations
 
@@ -153,9 +165,6 @@ F32_FLOPS = 67e12
 F64_FLOPS = 33.5e12
 BF16_TC_FLOPS = 989e12
 
-# the serving slice: (model, impl, the kernel its prefill runs in every layer)
-SERVE = (("qwen2-0.5b", "flash", "flash_attention"),
-         ("mamba2-130m", "pallas", "ssd_scan"))
 # the device kernels of each serving kernel, by a part of their names
 SERVE_KERNEL_NAMES = {"flash_attention": ("flash_tc_kernel",),
                       "ssd_scan": ("ssd_state_kernel", "ssd_pass_kernel",
@@ -339,49 +348,110 @@ def median_ms(fn, repeats: int = 5, **kw) -> float:
     return float(np.median([time_ms(fn, **kw) for _ in range(repeats)]))
 
 
-def device_times(fn, iters: int = 1):
-    """``(wall ms, {kernel: device µs}, {kernel: launches})`` per call of
-    ``fn`` over ``iters`` calls under torch.profiler: the device activity
-    (CUPTI) by name, and the host clock around the calls, which the profiler
-    slows."""
-    from torch.autograd import DeviceType
+def trace(fn, iters: int = 1):
+    """``(wall ms per call, events)`` of ``iters`` calls of ``fn`` under
+    torch.profiler: the host clock around the calls, which the profiler
+    slows, and the trace's events (host-side API records and device-side
+    kernel records).  A throw-away ``spin_kernel`` is launched first: on the
+    card a trace has missed the device record of the first kernel of its
+    window far more often than any other."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
+    return wall, prof.events()
+
+
+def kernel_records(events):
+    """The device-side kernel records of a trace, the spin kernel left out."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "spin_kernel" not in e.name]
+
+
+def device_times(fn, iters: int = 1):
+    """``(wall ms, {kernel: device µs}, {kernel: launches})`` per call of
+    ``fn`` over ``iters`` calls, from the device-side records of a trace
+    (which may miss some, see profiled)."""
+    wall, events = trace(fn, iters)
     per, calls = {}, {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "device_time_total", None)
-        if t is None:
-            t = getattr(evt, "cuda_time_total", 0.0)
-        per[evt.key] = per.get(evt.key, 0.0) + t / iters
-        calls[evt.key] = calls.get(evt.key, 0) + evt.count / iters
+    for e in kernel_records(events):
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / iters
+        calls[e.name] = calls.get(e.name, 0) + 1 / iters
     return wall, per, calls
 
 
+# the host-side API records of a kernel launch (CUDA runtime and driver)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+               "cuLaunchKernel", "cuLaunchCooperativeKernel")
+
+
+def launch_records(events):
+    """The trace's kernel launches in the order the host made them, from the
+    host-side API records (one per correlation id): each as the name of the
+    kernel whose device-side record has the same correlation id, or None
+    where the trace holds no device-side record of that launch."""
+    from torch.autograd import DeviceType
+    kernel = {e.id: e.name for e in kernel_records(events)}
+    seen, out = set(), []
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.device_type == DeviceType.CPU and e.name.startswith(LAUNCH_APIS) \
+                and e.id not in seen:
+            seen.add(e.id)
+            out.append(kernel.get(e.id))
+    return out
+
+
 def profiled(fn, parts, iters: int = 20):
-    """``({part: device µs}, {part: launches})`` per call of ``fn``, summed
-    over the kernels whose names contain each of ``parts``; fails unless the
-    trace shows each part launched exactly once a call."""
+    """``({part: device µs}, {part: launches}, dropped)`` per call of
+    ``fn``; fails unless each of ``parts`` (a substring of kernel names) is
+    launched exactly once a call.  Launches are counted from the host-side
+    launch records of one trace, which a call makes in a fixed order: a
+    launch whose device-side record the trace lacks takes the kernel that
+    the same place in the order has in the other calls.  ``dropped`` counts
+    those launches; a part's device µs is its mean over its traced records
+    times its launches a call."""
     fn()
-    _, per, calls = device_times(fn, iters)
-    us, launches = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0.0)
-    for key, t in per.items():
-        for part in parts:
-            if part in key:
-                us[part] += t
-                launches[part] += calls[key]
+    _, events = trace(fn, iters)
+    recs = launch_records(events)
+    if not recs or (recs[0] is not None and "spin_kernel" not in recs[0]):
+        raise AssertionError(f"profiled {parts}: the trace does not open "
+                             f"with the spin kernel's launch: {recs[:1]}")
+    recs = recs[1:]
+    if not recs or len(recs) % iters:
+        raise AssertionError(f"profiled {parts}: {len(recs)} launch records "
+                             f"in {iters} calls, not the same number a call")
+    width = len(recs) // iters
+    order = []
+    for j in range(width):
+        names = {recs[i * width + j] for i in range(iters)} - {None}
+        if len(names) != 1:
+            raise AssertionError(f"profiled {parts}: launch {j} of a call is "
+                                 f"of kernels {sorted(names)} over {iters} "
+                                 "calls, not of one")
+        order.append(names.pop())
+    launches = {part: sum(part in k for k in order) for part in parts}
     if any(n != 1 for n in launches.values()):
         raise AssertionError(f"profiled launches per call of {parts}: "
-                             f"{launches}, expected one each")
-    return us, launches
+                             f"{launches}, expected one each (order "
+                             f"{order})")
+    us = {}
+    for part in parts:
+        times = [e.time_range.elapsed_us() for e in kernel_records(events)
+                 if part in e.name]
+        if len(times) > iters:
+            raise AssertionError(f"profiled {part}: {len(times)} device "
+                                 f"records for {iters} launches")
+        us[part] = sum(times) / len(times)
+    return us, launches, sum(k is None for k in recs)
 
 
 def host_us(fn, calls: int = 200):
@@ -583,8 +653,8 @@ def phase_kernels(args):
             n_cases += 1
     dev = to_dev([step_inputs("random", 0, B, S)[k] for k in STEP_KEYS])
     es_ms = median_ms(lambda: ops.event_step(*dev))
-    es_prof, es_launches = profiled(lambda: ops.event_step(*dev),
-                                    ("event_step",))
+    es_prof, es_launches, es_dropped = profiled(
+        lambda: ops.event_step(*dev), ("event_step",))
     es_plain = median_ms(lambda: ref.event_step_ref(*dev), iters=20)
     es_bound, es_by, es_bytes = event_step_bound_ms(B, S)
     geom = {f"{b}x{s}": event_step_geometry(b, s, SMS)._asdict()
@@ -594,6 +664,7 @@ def phase_kernels(args):
              "max_abs_err": max(errs), "bitwise_vs_host_numpy": True,
              "ms": es_ms, "profiler_device_us": es_prof,
              "cuda_launches_per_call": sum(es_launches.values()),
+             "trace_dropped_device_records": es_dropped,
              "plain_ms": es_plain, "bound_ms": es_bound,
              "bound_by": es_by, "bytes": es_bytes}
 
@@ -641,8 +712,8 @@ def phase_alloc_kernel(args):
                                  f"on the {geom.route} route")
         rounds = ref.alloc_active_set_rounds(*d)
         bound, by, nbytes = alloc_bound_ms(N, S, rounds)
-        dev_us, launches = profiled(lambda: ops.alloc_active_set(*d),
-                                    ("alloc_warp_kernel",))
+        dev_us, launches, dropped = profiled(
+            lambda: ops.alloc_active_set(*d), ("alloc_warp_kernel",))
         ms = median_ms(lambda: ops.alloc_active_set(*d))
         dev_us = dev_us["alloc_warp_kernel"]
         host, host_p10 = host_us(lambda: ops.alloc_active_set(*d))
@@ -651,6 +722,7 @@ def phase_alloc_kernel(args):
             "geometry": geom._asdict(), "ms": ms,
             "profiler_device_us": dev_us,
             "cuda_launches_per_call": launches["alloc_warp_kernel"],
+            "trace_dropped_device_records": dropped,
             "wrapper_host_us": host, "wrapper_host_us_p10": host_p10,
             "plain_ms": median_ms(lambda: ref.alloc_active_set_ref(*d),
                                   iters=20, repeats=3),
@@ -673,14 +745,33 @@ def phase_alloc_kernel(args):
 # --------------------------------------------------------------------------- #
 # tests/test_kernels.py's shapes, then the serving slice's (B = 4 prompts of
 # 512 tokens, and the ragged 300-token prompt), then a length no tile size
-# divides and a single row
+# divides and a single row; then zamba2's head dim 80 (32 heads, GQA 1:1, at
+# 512, 300 and 77) and llava's 576 patches + 512 tokens (GQA 32:8 x 128);
+# then the rest of the shapes phase serve gives the kernel: whisper's decoder
+# (16 heads of 64, GQA 1:1) at 512 and 300, llava's ragged prompt (576 +
+# 300), and the 511-token float32 prefill of each model's prefill + decode
+# == forward check.  The SSD shapes end with zamba2's geometry (80 heads of
+# 64, d_state 64), then the 511-token prefills (the wrapper halves the chunk
+# to 1) of mamba2 and zamba2
 FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
                 (1, 512, 2, 2, 128), (3, 64, 6, 3, 16),
                 (4, 512, 14, 2, 64), (4, 300, 14, 2, 64),
-                (1, 77, 4, 2, 32), (2, 1, 2, 1, 16)]
+                (1, 77, 4, 2, 32), (2, 1, 2, 1, 16),
+                (4, 512, 32, 32, 80), (4, 300, 32, 32, 80), (1, 77, 2, 2, 80),
+                (4, 1088, 32, 8, 128),
+                (4, 512, 16, 16, 64), (4, 300, 16, 16, 64),
+                (4, 876, 32, 8, 128),
+                (4, 511, 14, 2, 64), (4, 511, 32, 32, 80),
+                (4, 511, 16, 16, 64), (4, 1087, 32, 8, 128)]
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
-              (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300)]
+              (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300),
+              (4, 512, 80, 1, 64, 64, 256), (4, 300, 80, 1, 64, 64, 300),
+              (4, 511, 24, 1, 64, 128, 1), (4, 511, 80, 1, 64, 64, 1)]
+# zamba2-2.7b's serving shapes: 32 heads of 80 (GQA 1:1) in its shared
+# attention; 80 SSD heads of 64 with d_state 64 and one group
+FLASH_ZAMBA2 = (SERVE_B, SERVE_S, 32, 32, 80)
+SSD_ZAMBA2 = (SERVE_B, SERVE_S, 80, 1, 64, 64, 256)
 # tests/test_kernels.py's shapes, qwen2's width (the timed case, 2048 rows
 # of 896), a tail that is not a whole vector and rows that start unaligned
 # (999), and the longest row the kernel takes (65536, the strided path)
@@ -700,7 +791,8 @@ SSD_TOL = 1e-4
 SSD_TIMED = (SERVE_B, SERVE_S, 24, 1, 64, 128, 256)
 SSD_BF16_SHAPES = [SSD_TIMED, (SERVE_B, RAGGED_S, 24, 1, 64, 128, RAGGED_S),
                    (2, 512, 8, 1, 64, 128, 64), (1, 256, 8, 2, 64, 128, 64),
-                   (1, 192, 3, 1, 20, 36, 64), (2, 96, 4, 2, 40, 24, 32)]
+                   (1, 192, 3, 1, 20, 36, 64), (2, 96, 4, 2, 40, 24, 32),
+                   SSD_ZAMBA2, (SERVE_B, RAGGED_S, 80, 1, 64, 64, RAGGED_S)]
 # the bf16 bar against the sequential recurrence (the reference's), and the
 # tolerance against ssd_scan_chunked_ref(bf16_points=True), which rounds
 # where the kernel rounds: they differ by float32 summation order, ex2.approx
@@ -781,11 +873,62 @@ def bound_of(bytes_, flops, peak):
             "bytes": bytes_, "flops": flops, "peak_flops": peak}
 
 
+def flash_record(shape, errs):
+    """flash_attention at one causal shape: bf16 (tensor cores) and float32
+    (CUDA cores) times beside the plain version and sdpa, the bf16 bound,
+    and the largest errors the shape loop found at that shape."""
+    q, k, v = flash_inputs(0, *shape, torch.bfloat16)
+    q32, k32, v32 = flash_inputs(0, *shape, torch.float32)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    err = errs[shape]
+    return {
+        "shape": list(shape), "dtype": "bfloat16",
+        "max_abs_err": max(err.values()),
+        "max_abs_err_f32": err[torch.float32],
+        "max_abs_err_bf16": err[torch.bfloat16],
+        "ms": median_ms(lambda: ops.flash_attention(q, k, v)),
+        "ms_f32": median_ms(lambda: ops.flash_attention(q32, k32, v32)),
+        "plain_ms": median_ms(lambda: ref.attention_ref(
+            q.float(), k.float(), v.float()).to(q.dtype), iters=20),
+        "library_ms": median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+        **bound_of(*flash_bound(*shape, 2))}
+
+
+def ssd_record(shape, errs):
+    """ssd_scan at one shape: its CUDA launches a call and device time by
+    kernel (bf16), bf16 and float32 times beside the plain version, the
+    bf16 bound, and the largest errors the shape loops found at that
+    shape."""
+    args = ssd_inputs(0, *shape[:6], torch.bfloat16)
+    args32 = ssd_inputs(0, *shape[:6])
+    prof, launches, dropped = profiled(
+        lambda: ops.ssd_scan(*args, chunk=shape[6]),
+        SERVE_KERNEL_NAMES["ssd_scan"])
+    err = errs[shape]
+    return {
+        "shape": list(shape), "dtype": "bfloat16",
+        "max_abs_err": max(err["f32"], err["bf16"]),
+        "max_abs_err_f32": err["f32"], "max_abs_err_bf16": err["bf16"],
+        "max_abs_err_bf16_vs_chunked_points": err["points"],
+        "bf16_y_share_of_bar": err["share"],
+        "cuda_launches_per_call": sum(launches.values()),
+        "trace_dropped_device_records": dropped,
+        "profiler_device_us": prof,
+        "ms": median_ms(lambda: ops.ssd_scan(*args, chunk=shape[6])),
+        "ms_f32": median_ms(lambda: ops.ssd_scan(*args32, chunk=shape[6])),
+        "plain_ms": median_ms(lambda: ref.ssd_scan_sequential_ref(*args),
+                              iters=3, warmup=1, repeats=3),
+        "library_ms": None,
+        **bound_of(*ssd_bound(*shape, 2))}
+
+
 def phase_model_kernels():
     recs = {}
 
     # flash_attention: f32 at rtol=atol=1e-5, bf16 at rtol=atol=2e-2
-    errs, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    errs, n = {}, 0                      # {shape: {dtype: max abs err}}
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
@@ -795,49 +938,42 @@ def phase_model_kernels():
                                          causal=causal)
                 torch.cuda.synchronize()
                 tol = MODEL_TOL[dtype]
-                errs[dtype] = max(errs[dtype], assert_close(
+                at = errs.setdefault(shape, {}).setdefault(dtype, 0.0)
+                errs[shape][dtype] = max(at, assert_close(
                     f"flash_attention{shape} {dtype} causal={causal}", got,
                     want, tol, tol))
                 n += 1
-    shape = (SERVE_B, SERVE_S, 14, 2, 64)
-    q, k, v = flash_inputs(0, *shape, torch.bfloat16)
-    q32, k32, v32 = flash_inputs(0, *shape, torch.float32)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    worst = {dtype: max(e[dtype] for e in errs.values())
+             for dtype in (torch.float32, torch.bfloat16)}
     recs["flash_attention"] = {
-        "shape": list(shape), "dtype": "bfloat16", "cases": n,
-        "max_abs_err": max(errs.values()),
-        "max_abs_err_f32": errs[torch.float32],
-        "max_abs_err_bf16": errs[torch.bfloat16],
+        **flash_record((SERVE_B, SERVE_S, 14, 2, 64), errs), "cases": n,
+        "max_abs_err": max(worst.values()),
+        "max_abs_err_f32": worst[torch.float32],
+        "max_abs_err_bf16": worst[torch.bfloat16],
         "tolerance": "f32 rtol=atol=1e-5, bf16 rtol=atol=2e-2, vs "
                      "attention_ref on the same (widened) inputs",
-        "ms": median_ms(lambda: ops.flash_attention(q, k, v)),
-        "ms_f32": median_ms(lambda: ops.flash_attention(q32, k32, v32)),
         "design": "bf16: wgmma (tensor cores) fed by TMA; float32 (ms_f32, "
                   "f32 inputs): FMAs on the CUDA cores",
-        "plain_ms": median_ms(lambda: ref.attention_ref(
-            q.float(), k.float(), v.float()).to(q.dtype), iters=20),
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True) on [B,H,S,d] views",
-        "library_ms": median_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-        **bound_of(*flash_bound(*shape, 2))}
+        "zamba2": flash_record(FLASH_ZAMBA2, errs)}
 
     # ssd_scan: float32 (the CUDA-core kernel) at 1e-4 against the sequential
     # recurrence; bf16 (the tensor-core kernels) at 2e-2 against it and at
     # 1e-2 against the chunked form with the kernel's rounding points
-    err, n = 0.0, 0
+    errs = {shape: dict.fromkeys(("f32", "bf16", "points", "share"), 0.0)
+            for shape in SSD_SHAPES + SSD_BF16_SHAPES}
+    n = 0
     for shape in SSD_SHAPES:
         x, dt, A, B, C = ssd_inputs(n, *shape[:6])
         y, st = ops.ssd_scan(x, dt, A, B, C, chunk=shape[6])
         y_r, st_r = ref.ssd_scan_sequential_ref(x, dt, A, B, C)
         torch.cuda.synchronize()
-        err = max(err, assert_close(f"ssd_scan{shape} y", y, y_r, SSD_TOL,
-                                    SSD_TOL),
-                  assert_close(f"ssd_scan{shape} state", st, st_r, SSD_TOL,
-                               SSD_TOL))
+        errs[shape]["f32"] = max(
+            assert_close(f"ssd_scan{shape} y", y, y_r, SSD_TOL, SSD_TOL),
+            assert_close(f"ssd_scan{shape} state", st, st_r, SSD_TOL,
+                         SSD_TOL))
         n += 1
-    err_bf16 = err_points = share_bf16 = share_points = 0.0
     shares = []
     for shape in SSD_BF16_SHAPES:
         args = ssd_inputs(n, *shape[:6], torch.bfloat16)
@@ -850,54 +986,45 @@ def phase_model_kernels():
         y_1, _ = ref.ssd_scan_chunked_ref(*args, chunk=shape[6],
                                           bf16_points=True, bf16_pairs=False)
         torch.cuda.synchronize()
-        shares.append({"shape": list(shape),
-                       "kernel": bar_share(y, y_r, SSD_BF16_TOL,
-                                           SSD_BF16_TOL),
+        at = errs[shape]
+        at["share"] = bar_share(y, y_r, SSD_BF16_TOL, SSD_BF16_TOL)
+        shares.append({"shape": list(shape), "kernel": at["share"],
                        "single_rounding_emulation": bar_share(
-                           y_1, y_r, SSD_BF16_TOL, SSD_BF16_TOL)})
-        err_bf16 = max(err_bf16, assert_close(
-            f"ssd_scan{shape} bf16 y", y, y_r, SSD_BF16_TOL, SSD_BF16_TOL),
+                           y_1, y_r, SSD_BF16_TOL, SSD_BF16_TOL),
+                       "points": bar_share(y, y_p, SSD_POINTS_TOL,
+                                           SSD_POINTS_TOL)})
+        at["bf16"] = max(
+            assert_close(f"ssd_scan{shape} bf16 y", y, y_r, SSD_BF16_TOL,
+                         SSD_BF16_TOL),
             assert_close(f"ssd_scan{shape} bf16 state", st, st_r,
                          SSD_BF16_TOL, SSD_BF16_TOL))
-        share_bf16 = max(share_bf16, bar_share(y, y_r, SSD_BF16_TOL,
-                                               SSD_BF16_TOL))
-        share_points = max(share_points, bar_share(y, y_p, SSD_POINTS_TOL,
-                                                   SSD_POINTS_TOL))
-        err_points = max(err_points, assert_close(
-            f"ssd_scan{shape} bf16 y vs chunked_ref(bf16_points)", y, y_p,
-            SSD_POINTS_TOL, SSD_POINTS_TOL),
+        at["points"] = max(
+            assert_close(f"ssd_scan{shape} bf16 y vs chunked_ref"
+                         "(bf16_points)", y, y_p, SSD_POINTS_TOL,
+                         SSD_POINTS_TOL),
             assert_close(f"ssd_scan{shape} bf16 state vs chunked_ref"
                          "(bf16_points)", st, st_p, SSD_POINTS_TOL,
                          SSD_POINTS_TOL))
         n += 1
-    shape = SSD_TIMED
-    args = ssd_inputs(0, *shape[:6], torch.bfloat16)
-    args32 = ssd_inputs(0, *shape[:6])
-    ssd_prof, ssd_launches = profiled(
-        lambda: ops.ssd_scan(*args, chunk=shape[6]),
-        SERVE_KERNEL_NAMES["ssd_scan"])
+    worst = {key: max(e[key] for e in errs.values())
+             for key in ("f32", "bf16", "points", "share")}
     recs["ssd_scan"] = {
-        "shape": list(shape), "dtype": "bfloat16", "cases": n,
-        "max_abs_err": max(err, err_bf16), "max_abs_err_f32": err,
-        "max_abs_err_bf16": err_bf16,
-        "max_abs_err_bf16_vs_chunked_points": err_points,
-        "bf16_y_share_of_bar": share_bf16,
-        "bf16_y_share_of_points_tolerance": share_points,
+        **ssd_record(SSD_TIMED, errs), "cases": n,
+        "max_abs_err": max(worst["f32"], worst["bf16"]),
+        "max_abs_err_f32": worst["f32"], "max_abs_err_bf16": worst["bf16"],
+        "max_abs_err_bf16_vs_chunked_points": worst["points"],
+        "bf16_y_share_of_bar": worst["share"],
+        "bf16_y_share_of_points_tolerance": max(
+            sh["points"] for sh in shares),
         "bf16_y_share_of_bar_by_shape": shares,
-        "cuda_launches_per_call": sum(ssd_launches.values()),
-        "profiler_device_us": ssd_prof,
         "tolerance": "f32 rtol=atol=1e-4 vs ssd_scan_sequential_ref (y and "
                      "final state), bf16 rtol=atol=2e-2 vs it and 1e-2 vs "
                      "ssd_scan_chunked_ref(bf16_points=True)",
-        "ms": median_ms(lambda: ops.ssd_scan(*args, chunk=shape[6])),
-        "ms_f32": median_ms(lambda: ops.ssd_scan(*args32, chunk=shape[6])),
         "design": "bf16: three launches, wgmma (tensor cores) fed by TMA, "
                   "chunks in parallel; float32 (ms_f32, f32 inputs): FMAs on "
                   "the CUDA cores, one block per (b, h)",
-        "plain_ms": median_ms(lambda: ref.ssd_scan_sequential_ref(*args),
-                              iters=3, warmup=1, repeats=3),
-        "library": None, "library_ms": None,
-        **bound_of(*ssd_bound(*shape, 2))}
+        "library": None,
+        "zamba2": ssd_record(SSD_ZAMBA2, errs)}
 
     # rmsnorm: f32 at 1e-5, bf16 at 2e-2, float32 weight
     errs, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
@@ -1602,26 +1729,105 @@ def phase_allocate_cluster(args):
 # largest |logit| (and of every cache tensor to its own scale).
 PARITY_TOL = 1e-4
 CONTRACT_TOL = 2e-3          # prefill + decode == forward, tests/test_models
-# The reference's initialisation (fan-in of wq [D, H, hd] taken as H = 14)
-# gives qwen2 attention scores of standard deviation ~60: the softmax is an
-# argmax, and 24 such layers turn float32 rounding into O(1) changes of the
-# logits.  check_parity shows it with no kernel involved: impl="xla" in
-# float32 against the same eager path in float64 (whose scores, softmax,
-# norms and RoPE the reference's code still rounds to float32), on the
-# untempered weights and on the tempered ones (ROADMAP Queue C P3).  The
-# served weights therefore scale wq and wk by 1/8 after init, which brings
-# the scores to O(1), as in a trained model.
+# The reference's initialisation takes the fan-in of an attention
+# projection [D, H, hd] as H (qwen2: 14, not D = 896), so untrained
+# attention scores reach a standard deviation of ~60: the softmax is an
+# argmax, and deep stacks of such layers turn float32 rounding into O(1)
+# changes of the logits.  check_parity shows it with no kernel involved:
+# impl="xla" in float32 against the same eager path in float64 (whose
+# scores, softmax, norms and RoPE the reference's code still rounds to
+# float32), on the untempered weights and on the tempered ones (ROADMAP
+# Queue C P3).  The served weights therefore scale those projections by 1/8
+# after init -- GQA wq and wk, MLA's query projection (wq or wq_b) and wkv_b
+# -- which brings the scores to O(1), as in a trained model.
 QK_TEMPER = 0.125
 
 
-def temper(params, cfg) -> None:
-    """Scale the q / k projections of a dense model in place (see
-    QK_TEMPER); an SSM model has none and is left as it is."""
-    if cfg.family != "dense":
+def temper(params) -> None:
+    """Scale, in place, every attention projection whose fan-in the
+    reference takes as the head count (see QK_TEMPER): GQA ``wq`` / ``wk``
+    (dense, VLM, the hybrid's shared blocks, whisper's self, cross and
+    encoder attention) and MLA's ``wq`` / ``wq_b`` and ``wkv_b``; a model
+    without attention is left as it is."""
+    if isinstance(params, list):
+        for p in params:
+            temper(p)
         return
-    for lp in params["layers"]:
-        for key in ("wq", "wk"):
-            lp["attn"][key].mul_(QK_TEMPER)
+    if not isinstance(params, dict):
+        return
+    if "wkv_b" in params:
+        keys = ("wq_b" if "wq_b" in params else "wq", "wkv_b")
+    elif "wq" in params and "wk" in params:
+        keys = ("wq", "wk")
+    else:
+        keys = ()
+    for key in keys:
+        params[key].mul_(QK_TEMPER)
+    for key, v in params.items():
+        if key not in keys:
+            temper(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class Served:
+    """One model of phase serve.  ``kernel`` is the kernel its prefill runs
+    (None: none); ``parity_layers`` / ``serve_layers`` cut the depth of the
+    float32 parity check / the bf16 serving where the full depth does not
+    fit (0: full depth); ``f64`` says whether the float64 rounding check
+    fits beside the float32 copy; ``steps`` greedy decode steps."""
+    name: str
+    impl: str
+    kernel: object
+    parity_layers: int = 0
+    serve_layers: int = 0
+    f64: bool = True
+    steps: int = SERVE_STEPS
+
+
+# the serving slice: each config of configs/ with the impl that reaches its
+# kernel (MLA reaches none, as in the reference).  Depth cuts: llava's float32
+# parity at 4 of 32 layers (two float32 copies of 7.2 B parameters do not fit
+# beside the float64 check); deepseek-v2-lite's at 2 of 27 (its dense layer
+# and one MoE layer); deepseek-v3 at 2 of 61 for parity (one dense and one
+# MoE layer of 256 experts: 57 GB in float32) and 4 of 61 for serving (3
+# dense + 1 MoE, 34 GB in bf16: 61 layers do not fit one card), without its
+# MTP block (read only by the training loss).
+SERVE = (Served("qwen2-0.5b", "flash", "flash_attention"),
+         Served("mamba2-130m", "pallas", "ssd_scan"),
+         Served("zamba2-2.7b", "flash", "flash_attention"),
+         Served("zamba2-2.7b", "pallas", "ssd_scan"),
+         Served("whisper-medium", "flash", "flash_attention"),
+         Served("llava-next-mistral-7b", "flash", "flash_attention",
+                parity_layers=4, steps=16),
+         Served("deepseek-v2-lite-16b", "flash", "flash_attention",
+                parity_layers=2, steps=8),
+         Served("deepseek-v3-671b", "xla", None, parity_layers=2,
+                serve_layers=4, f64=False, steps=8))
+
+
+def cut(cfg, layers: int):
+    """``cfg`` at ``layers`` layers (0: as it is); a MoE config keeps one
+    dense layer per leading-dense group it had, at most ``layers - 1``."""
+    if not layers:
+        return cfg
+    kw = {"num_layers": layers, "mtp": False}
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, first_dense_layers=min(cfg.moe.first_dense_layers,
+                                            layers - 1))
+    return dataclasses.replace(cfg, **kw)
+
+
+def kernel_launches(cfg, impl: str, kernel) -> int:
+    """Launches of ``kernel`` in one prefill: one per causal self-attention
+    (a layer; the hybrid's shared-block applications; the decoder's layers
+    of an encoder-decoder) under "flash", one per SSD layer under "pallas",
+    none for MLA."""
+    if kernel is None or cfg.mla is not None:
+        return 0
+    if cfg.family == "hybrid" and impl == "flash":
+        return cfg.num_layers // cfg.hybrid.attn_every
+    return cfg.num_layers
 
 
 def seeded(seed: int) -> torch.Generator:
@@ -1633,20 +1839,42 @@ def prompts(seed: int, B: int, S: int, vocab: int) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, vocab, (B, S))).to(DEV)
 
 
+def batch_for(cfg, seed: int, B: int, S: int) -> dict:
+    """A prompt of ``S`` tokens, with the family's precomputed embeddings:
+    whisper's encoder frames, llava's 576 patch embeddings before the
+    tokens (standard normal, in the config's compute dtype)."""
+    out = {"tokens": prompts(seed, B, S, cfg.vocab_size)}
+    rng = np.random.default_rng(seed + 7)
+    dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.encdec is not None:
+        out["frames"] = normal(rng, (B, cfg.encdec.encoder_frames,
+                                     cfg.d_model), dtype)
+    if cfg.vlm is not None:
+        out["patch_embeds"] = normal(rng, (B, cfg.vlm.num_patches,
+                                           cfg.d_model), dtype)
+    return out
+
+
+def prefix(cfg) -> int:
+    """Positions before the tokens: a VLM's patches."""
+    return cfg.vlm.num_patches if cfg.vlm is not None else 0
+
+
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over max |b|."""
     a, b = a.float(), b.float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def greedy(model, params, tokens, steps: int, vocab: int):
+def greedy(model, params, batch, steps: int, vocab: int):
     """prefill -> pad_cache -> ``steps`` greedy decode steps.  Returns the
     generated tokens [B, steps], the prefill seconds, the mean decode
     seconds per step, and whether every logit was finite."""
-    B, S = tokens.shape
+    B, S = batch["tokens"].shape
+    S += prefix(model.cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens})
+    logits, cache = model.prefill(params, batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
@@ -1664,160 +1892,236 @@ def greedy(model, params, tokens, steps: int, vocab: int):
     return torch.cat(out, dim=1).cpu(), t_prefill, t_decode, bool(finite)
 
 
-def check_parity(name, impl, cfg, seed):
+def check_parity(sv: Served, cfg, seed):
     """Float32, same parameters: the kernel lowering's last-position
-    prefill logits against impl="xla" (at S = 512 and the ragged 300), and
-    prefill + decode == forward for the kernel lowering."""
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+    prefill logits and every cache tensor against impl="xla" (at S = 512
+    and the ragged 300; None where the lowering launches no kernel, as it is
+    then the composite path itself), and prefill + decode == forward for the
+    kernel lowering; before the weights are tempered, how far float32
+    rounding alone moves the untempered model (impl="xla" against
+    float64)."""
+    cfg32 = dataclasses.replace(cut(cfg, sv.parity_layers),
+                                param_dtype="float32",
                                 compute_dtype="float32")
-    mk = build_model(cfg32, impl=impl)
-    mx = build_model(cfg32, impl="xla")
+    kernel = kernel_launches(cfg32, sv.impl, sv.kernel) > 0
+    mk = build_model(cfg32, impl=sv.impl)
+    mx = build_model(cfg32, impl="xla") if kernel else mk
     params = mk.init(seeded(seed))
-    rec = {}
-    if cfg.family == "dense":
+    rec = {"num_layers": cfg32.num_layers}
+    has_attention = cfg.family != "ssm"
+    if has_attention and sv.f64:
         # reported, not asserted: how far rounding alone moves this model
-        tok = {"tokens": prompts(seed + SERVE_S, SERVE_B, SERVE_S,
-                                 cfg.vocab_size)}
+        tok = batch_for(cfg32, seed + SERVE_S, SERVE_B, SERVE_S)
         m64 = build_model(dataclasses.replace(
-            cfg, param_dtype="float64", compute_dtype="float64"), impl="xla")
+            cfg32, param_dtype="float64", compute_dtype="float64"),
+            impl="xla")
         p64 = tree_map(torch.Tensor.double, params)      # the same values
+        tok64 = {k: v.double() if v.is_floating_point() else v
+                 for k, v in tok.items()}
         lx = mx.prefill(params, tok)[0]
-        rec["untempered_logits_rel_err"] = max_rel(mk.prefill(params, tok)[0],
-                                                   lx)
+        if kernel:
+            rec["untempered_logits_rel_err"] = max_rel(
+                mk.prefill(params, tok)[0], lx)
         rec["untempered_xla_f32_vs_f64_rel_err"] = max_rel(
-            lx, m64.prefill(p64, tok)[0])
-        temper(params, cfg)
-        temper(p64, cfg)
+            lx, m64.prefill(p64, tok64)[0])
+        temper(params)
+        temper(p64)
         rec["tempered_xla_f32_vs_f64_rel_err"] = max_rel(
-            mx.prefill(params, tok)[0], m64.prefill(p64, tok)[0])
+            mx.prefill(params, tok)[0], m64.prefill(p64, tok64)[0])
         del m64, p64, lx
-    for S in (SERVE_S, RAGGED_S):
-        tok = prompts(seed + S, SERVE_B, S, cfg.vocab_size)
-        lk, ck = mk.prefill(params, {"tokens": tok})
-        lx, cx = mx.prefill(params, {"tokens": tok})
+        torch.cuda.empty_cache()
+    else:
+        temper(params)
+    for S in (SERVE_S, RAGGED_S) if kernel else ():
+        batch = batch_for(cfg32, seed + S, SERVE_B, S)
+        lk, ck = mk.prefill(params, batch)
+        lx, cx = mx.prefill(params, batch)
         rel = max_rel(lk, lx)
         cache_rel = max(max_rel(a, b) for a, b in zip(tree_leaves(ck),
                                                       tree_leaves(cx)))
         if not rel <= PARITY_TOL or not cache_rel <= PARITY_TOL:
             raise AssertionError(
-                f"{name} impl={impl} S={S}: prefill logits differ from "
+                f"{sv.name} impl={sv.impl} S={S}: prefill logits differ from "
                 f"impl='xla' by {rel:.3e} (caches {cache_rel:.3e}) of their "
                 f"scale > {PARITY_TOL}")
         rec[f"S{S}"] = {"logits_rel_err": rel, "cache_rel_err": cache_rel,
                         "logit_scale": float(lx.float().abs().max())}
-    tok = prompts(seed, SERVE_B, SERVE_S, cfg.vocab_size)
-    full = mk.forward(params, {"tokens": tok})
-    lp, cache = mk.prefill(params, {"tokens": tok[:, :-1]})
-    cache = mk.pad_cache(cache, SERVE_S + 4)
-    ld, _ = mk.decode_step(params, cache, {"tokens": tok[:, -1:],
-                                           "pos": SERVE_S - 1})
+        del lk, ck, lx, cx
+    if not kernel:
+        rec.update({f"S{S}": None for S in (SERVE_S, RAGGED_S)},
+                   no_parity="no kernel on this path")
+    if cfg32.moe is None:
+        rec["prefill_decode_vs_forward_max_abs"] = contract(
+            sv, mk, params, SERVE_S, seed, assert_=True)
+    else:
+        # Capacity drops make the reference's MoE dispatch non-causal
+        # (ROADMAP Queue C R6): slots are given k-major over the whole
+        # sequence, so a later token's first choice can push out an earlier
+        # token's second, and forward over S tokens is not prefill over S - 1
+        # then one decode step.  At the config's capacity factor the
+        # contract's error is reported; it is held with a factor of E / k,
+        # at which no assignment is dropped (C >= S), on a prompt of
+        # MOE_CONTRACT_S tokens (deepseek-v3's 256 experts: C = S slots
+        # each of [B, E, C, D] float32 would take 15 GB at S = 512).
+        rec["prefill_decode_vs_forward_max_abs_at_config_capacity"] = \
+            contract(sv, mk, params, SERVE_S, seed, assert_=False)
+        m = cfg32.moe
+        mk_all = build_model(dataclasses.replace(cfg32, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k)), impl=sv.impl)
+        rec["contract_capacity_factor"] = m.num_experts / m.top_k
+        rec["contract_prompt"] = MOE_CONTRACT_S
+        rec["prefill_decode_vs_forward_max_abs"] = contract(
+            sv, mk_all, params, MOE_CONTRACT_S, seed, assert_=True)
+    rec["tolerance"] = (f"logits and caches within {PARITY_TOL} of their "
+                        f"scale; contract rtol=atol={CONTRACT_TOL}")
+    del mk, mx, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+# prompt of the MoE models' prefill + decode == forward check (see
+# check_parity)
+MOE_CONTRACT_S = 64
+
+
+def contract(sv: Served, model, params, S: int, seed: int,
+             assert_: bool) -> float:
+    """prefill(S - 1 tokens) + one decode step against forward(S tokens):
+    the largest |difference| of the two last positions' logits, held to
+    CONTRACT_TOL (rtol and atol) where ``assert_``."""
+    batch = batch_for(model.cfg, seed, SERVE_B, S)
+    tok = batch["tokens"]
+    P = prefix(model.cfg)
+    full = model.forward(params, batch)
+    lp, cache = model.prefill(params, dict(batch, tokens=tok[:, :-1]))
+    cache = model.pad_cache(cache, P + S + 4)
+    ld, _ = model.decode_step(params, cache, {"tokens": tok[:, -1:],
+                                              "pos": P + S - 1})
     errs = []
     for got, want in ((lp[:, 0], full[:, -2]), (ld[:, 0], full[:, -1])):
         diff = (got - want).abs()
-        if not bool((diff <= CONTRACT_TOL * (1 + want.abs())).all()):
+        if assert_ and not bool(
+                (diff <= CONTRACT_TOL * (1 + want.abs())).all()):
             raise AssertionError(
-                f"{name} impl={impl}: prefill + decode != forward (max abs "
-                f"{float(diff.max()):.3e} > {CONTRACT_TOL} rtol/atol)")
+                f"{sv.name} impl={sv.impl}: prefill + decode != forward (max "
+                f"abs {float(diff.max()):.3e} > {CONTRACT_TOL} rtol/atol)")
         errs.append(float(diff.max()))
-    rec["prefill_decode_vs_forward_max_abs"] = max(errs)
-    rec["tolerance"] = (f"logits and caches within {PARITY_TOL} of their "
-                        f"scale; contract rtol=atol={CONTRACT_TOL}")
+    return max(errs)
+
+
+def serve_one(sv: Served):
+    cfg = get_config(sv.name)
+    parity = check_parity(sv, cfg, SEED)
+
+    # the config's own bf16: B = 4 requests of 512 tokens (llava: after its
+    # 576 patches), greedy steps
+    scfg = cut(cfg, sv.serve_layers)
+    want = kernel_launches(scfg, sv.impl, sv.kernel)
+    torch.cuda.reset_peak_memory_stats()
+    same_path = want == 0               # the composite path, no kernel
+    mk = build_model(scfg, impl=sv.impl)
+    mx = mk if same_path else build_model(scfg, impl="xla")
+    params = mk.init(seeded(SEED))
+    temper(params)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    batch = batch_for(scfg, SEED, SERVE_B, SERVE_S)
+    mk.prefill(params, batch)                        # warm-up, not counted
+
+    ops.reset_launch_counts()
+    gen_k, t_pre, t_dec, finite = greedy(mk, params, batch, sv.steps,
+                                         cfg.vocab_size)
+    counts = ops.launch_counts()
+    got = counts[sv.kernel] if sv.kernel else 0
+    if got != want:
+        raise AssertionError(
+            f"{sv.name} impl={sv.impl}: {got} {sv.kernel} launches in one "
+            f"prefill and {sv.steps} decode steps, expected {want}")
+    if any(c for k, c in counts.items() if k != sv.kernel):
+        raise AssertionError(f"{sv.name}: other kernels launched: {counts}")
+    if not finite:
+        raise AssertionError(f"{sv.name}: non-finite logits while serving")
+    if not bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()):
+        raise AssertionError(f"{sv.name}: a generated token is outside the "
+                             "vocabulary")
+    # the composite path beside it, where it is another path
+    if same_path:
+        gen_x, tx_pre, tx_dec = gen_k, t_pre, t_dec
+    else:
+        gen_x, tx_pre, tx_dec, _ = greedy(mx, params, batch, sv.steps,
+                                          cfg.vocab_size)
+
+    # prefill wall time, median of 5, and one profiled prefill: device
+    # busy time, the serving kernel's share of it, and the idle share
+    def prefill_ms(model):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+    pre_med = prefill_ms(mk)
+    pre_med_x = pre_med if same_path else prefill_ms(mx)
+    wall, per, _ = device_times(lambda: mk.prefill(params, batch))
+    busy = sum(per.values()) / 1e3
+    names = SERVE_KERNEL_NAMES.get(sv.kernel, ())
+    kern = sum(t for k, t in per.items() if any(part in k for part in names))
+    profile_rec = {"wall_ms": wall, "device_busy_ms": busy,
+                   "kernel_device_ms": kern / 1e3,
+                   "device_idle_share": 1.0 - busy / wall if per else None,
+                   "note": "one prefill under torch.profiler (its host "
+                           "overhead included in wall_ms)"}
+
+    ops.reset_launch_counts()
+    rag = batch_for(scfg, SEED + 1, SERVE_B, RAGGED_S)
+    lk, _ = mk.prefill(params, rag)
+    lx = lk if same_path else mx.prefill(params, rag)[0]
+    if (ops.launch_counts()[sv.kernel] if sv.kernel else 0) != want:
+        raise AssertionError(f"{sv.name}: ragged prefill missed the kernel")
+    rec = {
+        "model": sv.name, "impl": sv.impl, "kernel": sv.kernel,
+        "num_layers": scfg.num_layers, "config_layers": cfg.num_layers,
+        "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+        "param_count": mk.param_count(), "param_bytes": param_bytes,
+        "batch": SERVE_B, "prompt": SERVE_S, "prefix": prefix(scfg),
+        "decode_steps": sv.steps, "launches": got, "f32_parity": parity,
+        "prefill_ms": t_pre * 1e3, "prefill_ms_median5": pre_med,
+        "prefill_profile": profile_rec,
+        "prefill_tokens_per_s": SERVE_B * SERVE_S / t_pre,
+        "decode_ms_per_step": t_dec * 1e3,
+        "decode_tokens_per_s": SERVE_B / t_dec,
+        "xla": {"same_path": same_path, "prefill_ms": tx_pre * 1e3,
+                "prefill_ms_median5": pre_med_x,
+                "decode_ms_per_step": tx_dec * 1e3},
+        "greedy_top1_agreement_with_xla": float(
+            (gen_k == gen_x).double().mean()),
+        "first_divergence_step": int(
+            (gen_k != gen_x).any(0).nonzero()[0]) if bool(
+                (gen_k != gen_x).any()) else None,
+        "ragged_bf16_logits_rel_err_vs_xla": max_rel(lk, lx),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit("serve", **rec)
+    del mk, mx, params, batch, rag, lk, lx
+    torch.cuda.empty_cache()
     return rec
 
 
 def phase_serve():
-    out = {}
-    for name, impl, kernel in SERVE:
-        cfg = get_config(name)
-        L = cfg.num_layers
-        parity = check_parity(name, impl, cfg, SEED)
-        torch.cuda.empty_cache()
-
-        # the config's own bf16: B = 4 requests of 512 tokens, 32 greedy steps
-        torch.cuda.reset_peak_memory_stats()
-        mk = build_model(cfg, impl=impl)
-        mx = build_model(cfg, impl="xla")
-        params = mk.init(seeded(SEED))
-        temper(params, cfg)
-        param_bytes = sum(t.numel() * t.element_size()
-                          for t in tree_leaves(params))
-        tok = prompts(SEED, SERVE_B, SERVE_S, cfg.vocab_size)
-        mk.prefill(params, {"tokens": tok})          # warm-up, not counted
-
-        ops.reset_launch_counts()
-        gen_k, t_pre, t_dec, finite = greedy(mk, params, tok, SERVE_STEPS,
-                                             cfg.vocab_size)
-        counts = ops.launch_counts()
-        if counts[kernel] != L:
-            raise AssertionError(
-                f"{name}: {counts[kernel]} {kernel} launches in one prefill, "
-                f"expected one per layer ({L})")
-        if any(c for k, c in counts.items() if k != kernel):
-            raise AssertionError(f"{name}: other kernels launched: {counts}")
-        if not finite:
-            raise AssertionError(f"{name}: non-finite logits while serving")
-        if not bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()):
-            raise AssertionError(f"{name}: a generated token is outside the "
-                                 "vocabulary")
-        gen_x, tx_pre, tx_dec, _ = greedy(mx, params, tok, SERVE_STEPS,
-                                          cfg.vocab_size)
-
-        # prefill wall time, median of 5, and one profiled prefill: device
-        # busy time, the serving kernel's share of it, and the idle share
-        def prefill_ms(model):
-            walls = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                model.prefill(params, {"tokens": tok})
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            return float(np.median(walls))
-        pre_med, pre_med_x = prefill_ms(mk), prefill_ms(mx)
-        wall, per, _ = device_times(
-            lambda: mk.prefill(params, {"tokens": tok}))
-        busy = sum(per.values()) / 1e3
-        kern = sum(t for k, t in per.items()
-                   if any(part in k for part in SERVE_KERNEL_NAMES[kernel]))
-        profile_rec = {"wall_ms": wall, "device_busy_ms": busy,
-                       "kernel_device_ms": kern / 1e3,
-                       "device_idle_share": 1.0 - busy / wall if per else None,
-                       "note": "one prefill under torch.profiler (its host "
-                               "overhead included in wall_ms)"}
-
-        ops.reset_launch_counts()
-        rag = prompts(SEED + 1, SERVE_B, RAGGED_S, cfg.vocab_size)
-        lk, _ = mk.prefill(params, {"tokens": rag})
-        lx, _ = mx.prefill(params, {"tokens": rag})
-        if ops.launch_counts()[kernel] != L:
-            raise AssertionError(f"{name}: ragged prefill missed the kernel")
-        rec = {
-            "model": name, "impl": impl, "kernel": kernel, "num_layers": L,
-            "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
-            "param_count": mk.param_count(), "param_bytes": param_bytes,
-            "batch": SERVE_B, "prompt": SERVE_S, "decode_steps": SERVE_STEPS,
-            "launches": counts[kernel], "f32_parity": parity,
-            "prefill_ms": t_pre * 1e3, "prefill_ms_median5": pre_med,
-            "prefill_profile": profile_rec,
-            "prefill_tokens_per_s": SERVE_B * SERVE_S / t_pre,
-            "decode_ms_per_step": t_dec * 1e3,
-            "decode_tokens_per_s": SERVE_B / t_dec,
-            "xla": {"prefill_ms": tx_pre * 1e3,
-                    "prefill_ms_median5": pre_med_x,
-                    "decode_ms_per_step": tx_dec * 1e3},
-            "greedy_top1_agreement_with_xla": float(
-                (gen_k == gen_x).double().mean()),
-            "first_divergence_step": int(
-                (gen_k != gen_x).any(0).nonzero()[0]) if bool(
-                    (gen_k != gen_x).any()) else None,
-            "ragged_bf16_logits_rel_err_vs_xla": max_rel(lk, lx),
-            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        }
-        emit("serve", **rec)
-        out[kernel] = rec
-        del mk, mx, params
-        torch.cuda.empty_cache()
-    return out
+    """Every served model in turn, each freed before the next.  Returns
+    ``{kernel: {"model/impl": launches a prefill}}`` and the records."""
+    t0 = time.perf_counter()
+    recs = [serve_one(sv) for sv in SERVE]
+    by_kernel = {}
+    for rec in recs:
+        if rec["kernel"]:
+            by_kernel.setdefault(rec["kernel"], {})[
+                f"{rec['model']}/{rec['impl']}"] = rec["launches"]
+    emit("serve_summary", seconds=time.perf_counter() - t0,
+         launches_by_path=by_kernel)
+    return by_kernel
 
 
 def main() -> None:
@@ -1914,17 +2218,25 @@ def main() -> None:
              device_bound_share=alloc["device_bound_share"],
              wrapper_host_us=alloc["wrapper_host_us"],
              wrapper_host_us_p10=alloc["wrapper_host_us_p10"]),
-        row("flash_attention", mk["flash_attention"],
-            served["flash_attention"]["launches"],
-            "src/repro/kernels/flash_attention.py:29",
-            mk["flash_attention"]["tolerance"],
-            "qwen2-0.5b impl='flash' prefill, one launch per layer"),
-        dict(row("ssd_scan", mk["ssd_scan"], served["ssd_scan"]["launches"],
+        dict(row("flash_attention", mk["flash_attention"],
+                 sum(served["flash_attention"].values()),
+                 "src/repro/kernels/flash_attention.py:29",
+                 mk["flash_attention"]["tolerance"],
+                 "impl='flash' prefills: one launch per causal "
+                 "self-attention (qwen2-0.5b and llava per layer, zamba2 per "
+                 "shared-block application, whisper per decoder layer; "
+                 "deepseek's MLA none, as in the reference)"),
+             launches_by_path=served["flash_attention"],
+             at_zamba2=mk["flash_attention"]["zamba2"]),
+        dict(row("ssd_scan", mk["ssd_scan"], sum(served["ssd_scan"].values()),
                  "src/repro/kernels/ssd_scan.py:25",
                  mk["ssd_scan"]["tolerance"],
-                 "mamba2-130m impl='pallas' prefill, one call per layer"),
+                 "impl='pallas' prefills: one call per Mamba2 layer "
+                 "(mamba2-130m, zamba2-2.7b)"),
+             launches_by_path=served["ssd_scan"],
              cuda_launches_per_call=mk["ssd_scan"][
-                 "cuda_launches_per_call"]),
+                 "cuda_launches_per_call"],
+             at_zamba2=mk["ssd_scan"]["zamba2"]),
         row("rmsnorm", mk["rmsnorm"], 0, "src/repro/kernels/rmsnorm.py:20",
             mk["rmsnorm"]["tolerance"],
             "none: no model of either package calls it (library entry "

@@ -10,10 +10,15 @@ types.
 Model weights (:func:`params_from_numpy`): the reference keeps a model's
 parameters as a tree of arrays in which every per-layer weight is stacked on
 a leading layer axis, ``layers/<name>`` of shape ``[L, ...]``.  The port keeps
-``params["layers"]`` as a list of L per-layer dicts, so ``layers/<name>[l]``
+each such subtree as a list of per-layer dicts, so ``layers/<name>[l]``
 becomes ``params["layers"][l][<name>]`` (at any depth of nesting, e.g.
-``layers/attn/wq[l]`` -> ``params["layers"][l]["attn"]["wq"]``).  Every other
-leaf (``embed``, ``final_norm``, ``lm_head``) keeps its name and shape.
+``layers/attn/wq[l]`` -> ``params["layers"][l]["attn"]["wq"]``).  The stacked
+subtrees are ``models.common.STACKED``: ``layers``, ``dense_layers`` (MoE
+configs' leading dense layers), ``ssm_layers`` and ``shared`` (hybrid: the
+Mamba2 layers and the shared attention blocks), ``enc_layers`` and
+``dec_layers`` (encoder-decoder).  Every other leaf (``embed``,
+``final_norm``, ``lm_head``, ``enc_norm``, the unstacked ``mtp`` subtree)
+keeps its name and shape.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import resolve_device
-from repro_torch.models.common import split_layers, tree_map
+from repro_torch.models.common import split_stacked, tree_map
 from repro_torch.sim.types import (InstanceCategory, InstanceSpec, NodeSpec,
                                    Request, RequestClass)
 from repro_torch.sim.workload import ServiceWorkModel
@@ -98,16 +103,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
     np.asarray, params)``) -> the port's parameters on ``device``, in
     ``cfg.param_dtype``, with the stacked ``layers`` split per layer (see the
     module docstring).  ``device=None`` means CUDA, as for ``build_model``,
-    and raises where there is none; pass ``device="cpu"`` for the CPU.  Only
-    the families the port serves (``dense``, ``ssm``) have this layout."""
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(ROADMAP Queue A, model zoo)")
+    and raises where there is none; pass ``device="cpu"`` for the CPU.  Every
+    family of the zoo has this layout."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
-    params = tree_map(
+    return split_stacked(tree_map(
         lambda a: _array_to_torch(a).to(device=device, dtype=dtype),
-        dict(tree))
-    params["layers"] = split_layers(params["layers"])
-    return params
+        dict(tree)))

@@ -26,7 +26,12 @@
 // within one batch row read as zeros) into a two-stage K/V ring whose
 // mbarriers the block waits on; tile j+1 is in flight while tile j is
 // multiplied.  The TMA swizzle (32, 64 or 128 B: one row of D <= 64, half a
-// row at D = 128) is the one the wgmma descriptors name.  Only the diagonal
+// row at D = 128) is the one the wgmma descriptors name.  A head dim whose
+// 2 D-byte row fits none of them (D = 80, zamba2's: 160 B) is staged in the
+// tile of the next power of two (TD = 128, two 64-column boxes): the tensor
+// map's rows stay D wide, so TMA fills columns D .. TD-1 with zeros and
+// never reads past a row; Q K^T runs D / 16 k-steps, P V a wgmma of N = D
+// (m64n80k16: box 0 and 16 columns of box 1), and only D columns are stored.  Only the diagonal
 // tile (and the ragged last one) is masked element-wise; log2(e) is folded
 // into the scale, so each score costs one FFMA and one EX2; m, l and acc
 // are f32 registers; P is rounded to bf16 before P V, the rounding of the
@@ -49,6 +54,13 @@ constexpr int BQ = 64;            // q rows per block
 constexpr int BK = 64;            // keys per k tile
 constexpr int THREADS = 128;      // one warpgroup
 constexpr float NEG = -1e30f;
+
+// the bf16 route's shared-memory tile width for head dim D: D where a row
+// of D bf16 is 32, 64 or 128 bytes or two 128-byte boxes, else the next
+// power of two (D = 80 -> 128); columns D .. TD-1 hold TMA's zero fill
+__host__ __device__ constexpr int tile_dim(int D) {
+    return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
 
 // --------------------------------------------------------------------------
 // float32: CUDA cores
@@ -176,8 +188,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
         __syncthreads();
 
-        // acc += P V over this tile's keys
-#pragma unroll 4
+        // acc += P V over this tile's keys (unrolled by 2 at D = 80, where
+        // 4 leaves ptxas at 128 registers with a 4-byte spill)
+#pragma unroll (D == 80 ? 2 : 4)
         for (int c = 0; c < BK; ++c) {
             const float4 pv =
                 *reinterpret_cast<const float4*>(&PT[c * (BQ + PAD) + tr * 4]);
@@ -227,7 +240,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // Q tile, then two K/V stages, then three mbarriers; +1024 to align the
 // base to the 128-byte swizzle's 1024-byte repeat.
 template <int D>
-constexpr int tc_smem_bytes() { return 5 * Tile<D>::BYTES + 1024 + 64; }
+constexpr int tc_smem_bytes() {
+    return 5 * Tile<tile_dim(D)>::BYTES + 1024 + 64;
+}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -236,7 +251,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_v,
                 bf16* __restrict__ o, int S, int H, int KV, float scale_log2,
                 int causal) {
-    using T = Tile<D>;
+    constexpr int TD = tile_dim(D);
+    using T = Tile<TD>;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t sQ = base;
@@ -263,10 +279,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     __syncthreads();
     if (tid == 0) {
         mbar_expect_tx(barQ, T::BYTES);
-        tma_tile<D>(&map_q, sQ, barQ, h, q0, b);
+        tma_tile<TD>(&map_q, sQ, barQ, h, q0, b);
         mbar_expect_tx(barQ + 8, 2 * T::BYTES);
-        tma_tile<D>(&map_k, base + T::BYTES, barQ + 8, kvh, 0, b);
-        tma_tile<D>(&map_v, base + 2 * T::BYTES, barQ + 8, kvh, 0, b);
+        tma_tile<TD>(&map_k, base + T::BYTES, barQ + 8, kvh, 0, b);
+        tma_tile<TD>(&map_v, base + 2 * T::BYTES, barQ + 8, kvh, 0, b);
     }
 
     float acc[D / 2];
@@ -285,12 +301,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
             const uint32_t nK = base + (3 - 2 * st) * T::BYTES;
             const uint32_t nbar = barQ + 8 * (2 - st);
             mbar_expect_tx(nbar, 2 * T::BYTES);
-            tma_tile<D>(&map_k, nK, nbar, kvh, (j + 1) * BK, b);
-            tma_tile<D>(&map_v, nK + T::BYTES, nbar, kvh, (j + 1) * BK, b);
+            tma_tile<TD>(&map_k, nK, nbar, kvh, (j + 1) * BK, b);
+            tma_tile<TD>(&map_v, nK + T::BYTES, nbar, kvh, (j + 1) * BK, b);
         }
         mbar_wait(barQ + 8 * (1 + st), (j >> 1) & 1);
 
-        // S = Q K^T: D / 16 steps of k16 over the head dim
+        // S = Q K^T: D / 16 steps of k16 over the head dim (the zero
+        // columns of a wider tile are not read)
         float s[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = 0.0f;
@@ -394,8 +411,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int H, int KV, float scale, int causal,
                       cudaStream_t st) {
     CUtensorMap mq, mk, mv;
-    if (!make_map<D>(&mq, q, B, S, H) || !make_map<D>(&mk, k, B, S, KV)
-        || !make_map<D>(&mv, v, B, S, KV))
+    constexpr int TD = tile_dim(D);
+    if (!make_map<TD>(&mq, q, B, S, H, D) || !make_map<TD>(&mk, k, B, S, KV, D)
+        || !make_map<TD>(&mv, v, B, S, KV, D))
         return cudaErrorInvalidValue;
     constexpr int bytes = tc_smem_bytes<D>();
     cudaError_t e = cudaFuncSetAttribute(
@@ -421,6 +439,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
         REPRO_FLASH_CASE(16)
         REPRO_FLASH_CASE(32)
         REPRO_FLASH_CASE(64)
+        REPRO_FLASH_CASE(80)
         REPRO_FLASH_CASE(128)
         default: return cudaErrorInvalidValue;
     }
@@ -431,7 +450,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // q, o: [B, S, H, D]; k, v: [B, S, KV, D]; all contiguous, one dtype
 // (DTYPE_F32: CUDA cores; DTYPE_BF16: tensor cores, q / k / v 16-byte
-// aligned for TMA).  D in {16, 32, 64, 128}, H a multiple of KV.  Launches
+// aligned for TMA).  D in {16, 32, 64, 80, 128}, H a multiple of KV.  Launches
 // on `stream`, never synchronises; returns the launch's cudaError_t
 // (0 on success).
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,

@@ -7,7 +7,9 @@ reading the ``[B, S, H, d]`` / ``[B, S, KV, d]`` layouts of the model zoo
 directly (no head transposes, no repeated KV heads).  The kernel is
 ``csrc/flash_attention.cu``: bfloat16 inputs run on the tensor cores
 (``wgmma`` fed by TMA, P rounded to bfloat16 before ``P v``), float32 inputs
-on the CUDA cores in float32.  This module is its launcher.  The plain
+on the CUDA cores in float32; a head dim of 80 (zamba2's) runs on both
+routes, the bf16 one staged in zero-filled 128-column tiles.  This module is
+its launcher.  The plain
 version is :func:`repro_torch.kernels.ref.attention_ref`.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 
 # head dims the kernel is instantiated for (csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

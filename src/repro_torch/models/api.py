@@ -1,4 +1,4 @@
-"""Unified model API over the ported families.
+"""Unified model API over every family of the zoo.
 
 Twin of the reference's ``models/api.py``.  ``Model`` exposes:
 
@@ -7,21 +7,26 @@ Twin of the reference's ``models/api.py``.  ``Model`` exposes:
   prefill(params, batch)                      — prompt -> (logits, cache)
   decode_step(params, cache, batch)           — one token -> (logits, cache)
   cache_defs(batch, seq) / init_cache / pad_cache
+  input_specs(cell) / make_inputs(cell, gen)  — a shape cell's inputs
 
 The serving path is ``build_model -> init -> prefill -> pad_cache ->
-decode_step``.  ``impl`` keeps the reference's strings: ``"xla"`` is the
-eager torch composite path, ``"flash"`` sends causal self-attention to the
-hand-written ``flash_attention`` kernel and ``"pallas"`` sends the SSD scan
-to the hand-written ``ssd_scan`` kernel.  Families ``dense`` and ``ssm`` are
-ported; the others, ``loss`` and the training path are not yet (ROADMAP
-Queue A, model zoo and training) and raise.
+decode_step`` for the families ``dense``, ``ssm``, ``hybrid``, ``moe``
+(with MLA), ``audio`` (encoder-decoder: ``batch["frames"]``) and ``vlm``
+(``batch["patch_embeds"]`` before the tokens).  ``impl`` keeps the
+reference's strings: ``"xla"`` is the eager torch composite path,
+``"flash"`` sends causal self-attention to the hand-written
+``flash_attention`` kernel and ``"pallas"`` sends the SSD scan to the
+hand-written ``ssd_scan`` kernel; MLA takes the composite path under every
+``impl``, as in the reference.  ``loss`` and the training path are not
+ported yet (ROADMAP Queue A, training).
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``build_model(..., device=None)`` means ``"cuda"`` and raises
-``RuntimeError`` when no CUDA device is present.  Parameters are a dict with
-``layers`` a list of per-layer dicts; caches keep the reference's stacked
-layout (``[L, B, S, KV, hd]``; for SSM ``{"ssm": [L,B,H,P,N], "conv":
-[L,B,K-1,C]}``).  ``decode_step`` updates the cache in place.
+``RuntimeError`` when no CUDA device is present.  Parameters are a dict in
+which each stacked subtree of the reference (``common.STACKED``) is a list
+of per-layer dicts; caches keep the reference's stacked layout (``[L, B, S,
+...]`` KV tables, SSM / conv states ``[L, B, ...]``).  ``decode_step``
+updates the cache in place.
 """
 from __future__ import annotations
 
@@ -30,17 +35,17 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeCell, get_config
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.common import (ParamDef, init_params,
                                        param_count_tree, rms_norm,
-                                       scan_layers, split_layers, stack_defs,
-                                       tree_map)
+                                       scan_layers, split_layers,
+                                       split_stacked, stack_defs, tree_map)
 
 Tree = Any
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
 IMPLS = ("xla", "flash", "pallas")
 
 
@@ -130,59 +135,81 @@ class Model:
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: family {self.cfg.family!r} is "
-                f"{transformer.NOT_PORTED}; ported: {FAMILIES}")
-        if self.cfg.family == "dense":
-            transformer.check_dense(self.cfg)
+            raise ValueError(f"{self.cfg.name}: unknown family "
+                             f"{self.cfg.family!r}; families: {FAMILIES}")
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
         self.device = resolve_device(self.device)
 
-    @property
-    def _ssm(self) -> bool:
-        return self.cfg.family == "ssm"
-
     # ---- params ---- #
     def param_defs(self) -> Tree:
-        return _ssm_lm_defs(self.cfg) if self._ssm \
-            else transformer.lm_defs(self.cfg)
+        f = self.cfg.family
+        if f == "ssm":
+            return _ssm_lm_defs(self.cfg)
+        if f == "hybrid":
+            return hybrid.hybrid_defs(self.cfg)
+        if f == "audio":
+            return encdec.encdec_defs(self.cfg)
+        return transformer.lm_defs(self.cfg)
 
     def init(self, gen: Union[torch.Generator, int]) -> Tree:
         """Parameters on the model's device from ``gen`` (a generator on that
-        device, or an int seed for one); ``layers`` split per layer."""
+        device, or an int seed for one); stacked subtrees split per layer."""
         if isinstance(gen, int):
             gen = torch.Generator(device=self.device).manual_seed(gen)
-        params = init_params(self.param_defs(), gen,
-                             getattr(torch, self.cfg.param_dtype), self.device)
-        params["layers"] = split_layers(params["layers"])
-        return params
+        return split_stacked(init_params(
+            self.param_defs(), gen, getattr(torch, self.cfg.param_dtype),
+            self.device))
 
     def param_count(self) -> int:
         return param_count_tree(self.param_defs())
 
     # ---- compute ---- #
     def forward(self, params: Tree, batch: Dict) -> torch.Tensor:
-        if self._ssm:
+        f = self.cfg.family
+        if f == "ssm":
             return _ssm_lm_forward(params, batch, self.cfg, self.impl)
+        if f == "hybrid":
+            return hybrid.hybrid_forward(params, batch, self.cfg,
+                                         impl=self.impl)
+        if f == "audio":
+            return encdec.encdec_forward(params, batch, self.cfg,
+                                         impl=self.impl)
         return transformer.lm_forward(params, batch, self.cfg,
                                       impl=self.impl)
 
     def prefill(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
-        if self._ssm:
+        f = self.cfg.family
+        if f == "ssm":
             return _ssm_lm_prefill(params, batch, self.cfg, self.impl)
+        if f == "hybrid":
+            return hybrid.hybrid_prefill(params, batch, self.cfg,
+                                         impl=self.impl)
+        if f == "audio":
+            return encdec.encdec_prefill(params, batch, self.cfg,
+                                         impl=self.impl)
         return transformer.lm_prefill(params, batch, self.cfg, impl=self.impl)
 
     def decode_step(self, params: Tree, cache: Tree, batch: Dict
                     ) -> Tuple[torch.Tensor, Tree]:
-        if self._ssm:
+        f = self.cfg.family
+        if f == "ssm":
             return _ssm_lm_decode(params, cache, batch, self.cfg)
+        if f == "hybrid":
+            return hybrid.hybrid_decode_step(params, cache, batch, self.cfg)
+        if f == "audio":
+            return encdec.encdec_decode_step(params, cache, batch, self.cfg)
         return transformer.lm_decode_step(params, cache, batch, self.cfg)
 
     # ---- caches ---- #
     def cache_defs(self, batch: int, seq: int) -> Tree:
-        if self._ssm:
+        f = self.cfg.family
+        if f == "ssm":
             return _ssm_cache_defs(self.cfg, batch, seq)
+        if f == "hybrid":
+            return hybrid.hybrid_cache_defs(self.cfg, batch, seq)
+        if f == "audio":
+            return encdec.encdec_cache_defs(self.cfg, batch, seq)
         return transformer.lm_cache_defs(self.cfg, batch, seq)
 
     def init_cache(self, batch: int, seq: int) -> Tree:
@@ -194,18 +221,65 @@ class Model:
     def pad_cache(self, cache: Tree, max_len: int) -> Tree:
         """Pad prefill KV tables along the sequence axis (axis 2 of the
         stacked ``[L, B, S, ...]`` layout) to ``max_len``.  Recurrent (SSM /
-        conv) states are fixed-size and pass through untouched."""
-        if self._ssm:
-            return cache
+        conv) states and the encoder's cross keys and values are fixed-size
+        and pass through untouched."""
+        def pad_seq(tree):
+            def one(x):
+                if max_len <= x.shape[2]:
+                    return x
+                out = x.new_zeros(x.shape[:2] + (max_len,) + x.shape[3:])
+                out[:, :, :x.shape[2]] = x
+                return out
+            return tree_map(one, tree)
 
-        def one(x):
-            pad = max_len - x.shape[2]
-            if pad <= 0:
-                return x
-            out = x.new_zeros(x.shape[:2] + (max_len,) + x.shape[3:])
-            out[:, :, :x.shape[2]] = x
-            return out
-        return tree_map(one, cache)
+        f = self.cfg.family
+        if f == "ssm":
+            return cache
+        if f == "hybrid":
+            return {"ssm_layers": cache["ssm_layers"],
+                    "attn": pad_seq(cache["attn"])}
+        if f == "audio":
+            return {"self": pad_seq(cache["self"]), "cross": cache["cross"]}
+        return pad_seq(cache)
+
+    # ---- inputs ---- #
+    def input_specs(self, cell: ShapeCell) -> Dict[str, Tuple]:
+        """``{name: (shape, dtype)}`` of every model input of this cell: a
+        decode step's ``tokens [B, 1]`` and ``pos``; else ``tokens [B, S]``,
+        with ``frames [B, T, D]`` (audio) or, for a VLM, ``patch_embeds [B,
+        P, D]`` and ``S - P`` tokens."""
+        cfg = self.cfg
+        B, S = cell.global_batch, cell.seq_len
+        cd = getattr(torch, cfg.compute_dtype)
+        if cell.kind == "decode":
+            return {"tokens": ((B, 1), torch.long), "pos": ((), torch.long)}
+        if cfg.family == "audio":
+            return {"frames": ((B, cfg.encdec.encoder_frames, cfg.d_model),
+                               cd),
+                    "tokens": ((B, S), torch.long)}
+        if cfg.family == "vlm":
+            P = cfg.vlm.num_patches
+            return {"patch_embeds": ((B, P, cfg.d_model), cd),
+                    "tokens": ((B, S - P), torch.long)}
+        return {"tokens": ((B, S), torch.long)}
+
+    def make_inputs(self, cell: ShapeCell, gen: torch.Generator
+                    ) -> Dict[str, torch.Tensor]:
+        """Random inputs of :meth:`input_specs`' shapes on the model's
+        device, drawn from ``gen`` (a generator on that device) in the specs'
+        order: tokens uniform in the vocabulary, embeddings standard normal,
+        ``pos`` 0."""
+        out = {}
+        for k, (shape, dtype) in self.input_specs(cell).items():
+            if dtype == torch.long and shape:
+                out[k] = torch.randint(0, self.cfg.vocab_size, shape,
+                                       generator=gen, device=self.device)
+            elif dtype == torch.long:
+                out[k] = torch.zeros((), dtype=dtype, device=self.device)
+            else:
+                out[k] = torch.randn(shape, generator=gen, device=self.device
+                                     ).to(dtype)
+        return out
 
 
 def build_model(name_or_cfg, impl: str = "xla", device=None) -> Model:

@@ -1,15 +1,20 @@
-"""Attention: GQA (grouped-query), full-sequence and decode.
+"""Attention: GQA (grouped-query) and MLA (multi-head latent, DeepSeek).
 
-Twin of the GQA part of the reference's ``models/attention.py``.  Lowerings:
+Twin of the reference's ``models/attention.py``.  Lowerings:
 
   * full sequence (prefill / forward) — ``impl="xla"``: grouped einsum with
     an optional q-chunked block-causal loop for long sequences (exact-causal
     at block granularity); ``impl="flash"``: the hand-written
-    ``flash_attention`` kernel, for causal self-attention;
-  * decode — one query position against a cache.
+    ``flash_attention`` kernel, for causal self-attention only (non-causal
+    and cross attention take the einsum path, as in the reference);
+  * decode — one query position against a cache; cross attention against
+    the encoder's fixed keys and values;
+  * MLA — full sequence by expanding the latent keys and values per head
+    (always the einsum path, whatever ``impl``: the reference never sends
+    MLA to its kernel); decode by matrix absorption over the compressed
+    cache ``{"c_kv": [B,S,r], "k_rope": [B,S,rope]}``, never expanded.
 
-MLA and ``gqa_cross_decode`` are not ported yet (ROADMAP Queue A, model zoo).
-Decode writes the new key / value row into the cache tensors in place and
+Decode writes the new cache rows into the cache tensors in place and
 returns them, where the reference returns updated copies: the port saves
 copying the whole cache on every generated token.
 """
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ParamDef, apply_rope
+from repro_torch.models.common import ParamDef, apply_rope, rms_norm
 
 NEG_INF = -1e30
 
@@ -160,5 +165,124 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
     out = sdpa_decode(q, cache["k"], cache["v"], pos=pos)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return y, cache
+
+
+def gqa_cross_decode(p: Dict, x: torch.Tensor, cache: Dict,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Cross attention during decode against the precomputed (fixed) encoder
+    keys and values ``cache {"k", "v"} [B,T,KV,hd]``."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    out = sdpa(q, cache["k"], cache["v"], causal=False)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+# --------------------------------------------------------------------------- #
+# MLA (DeepSeek V2/V3)
+# --------------------------------------------------------------------------- #
+def mla_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    c = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qk_hd = c.qk_nope_head_dim + c.qk_rope_head_dim
+    defs: Dict[str, ParamDef] = {}
+    if c.q_lora_rank:
+        defs["wq_a"] = ParamDef((D, c.q_lora_rank), ("d_model", None))
+        defs["q_norm"] = ParamDef((c.q_lora_rank,), (None,), init="ones")
+        defs["wq_b"] = ParamDef((c.q_lora_rank, H, qk_hd),
+                                (None, "heads", None))
+    else:
+        defs["wq"] = ParamDef((D, H, qk_hd), ("d_model", "heads", None))
+    defs["wkv_a"] = ParamDef((D, c.kv_lora_rank + c.qk_rope_head_dim),
+                             ("d_model", None))
+    defs["kv_norm"] = ParamDef((c.kv_lora_rank,), (None,), init="ones")
+    defs["wkv_b"] = ParamDef(
+        (c.kv_lora_rank, H, c.qk_nope_head_dim + c.v_head_dim),
+        (None, "heads", None))
+    defs["wo"] = ParamDef((H, c.v_head_dim, D), ("heads", None, "d_model"))
+    return defs
+
+
+def _mla_q(p, x, cfg):
+    """(q_nope, q_rope), each ``[B,S,H,*]``."""
+    c = cfg.mla
+    if c.q_lora_rank:
+        q = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsr,rhe->bshe", q, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    return torch.split(q, [c.qk_nope_head_dim, c.qk_rope_head_dim], dim=-1)
+
+
+def _mla_latent(p, x, positions, cfg):
+    """The compressed cache rows of ``x``: normed ``c_kv [B,S,r]`` and the
+    roped ``k_rope [B,S,rope]``."""
+    c = cfg.mla
+    kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv, k_rope = torch.split(kv, [c.kv_lora_rank, c.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence MLA (prefill / forward) by expanding the latent keys
+    and values per head; q / k head dim ``nope + rope``, v head dim
+    ``v_head_dim``.  Returns (output, the compressed cache rows)."""
+    c = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, x, positions, cfg)
+
+    kv_up = torch.einsum("bsr,rhe->bshe", c_kv, p["wkv_b"])
+    k_nope, v = torch.split(kv_up, [c.qk_nope_head_dim, c.v_head_dim],
+                            dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, c.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    chunk = cfg.attn_chunk_q if S >= cfg.attn_chunk_threshold else None
+    # sdpa scales by 1 / sqrt(q.shape[-1]) = 1 / sqrt(nope + rope)
+    out = sdpa(q, k, v, causal=True, chunk_q=chunk)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
+               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """One-token MLA decode by matrix absorption: ``wkv_b``'s key part is
+    folded into the query and its value part applied after the softmax, so
+    attention runs over the compressed cache ``{"c_kv": [B,S,r], "k_rope":
+    [B,S,rope]}`` (row ``pos`` written in place), never expanded per
+    head."""
+    c = cfg.mla
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, cfg)                     # [B,1,H,*]
+    posb = torch.full((B, 1), pos, device=x.device)
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
+    c_kv_new, k_rope_new = _mla_latent(p, x, posb, cfg)
+    cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+
+    w_k, w_v = torch.split(p["wkv_b"], [c.qk_nope_head_dim, c.v_head_dim],
+                           dim=-1)                          # [r,H,dk], [r,H,dv]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_k)    # [B,1,H,r]
+    scale = 1.0 / math.sqrt(c.qk_nope_head_dim + c.qk_rope_head_dim)
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope))
+    scores = scores.float() * scale
+    valid = torch.arange(c_kv.shape[1], device=x.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)    # [B,1,H,r]
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_v)       # [B,1,H,dv]
     y = torch.einsum("bshe,hed->bsd", out, p["wo"])
     return y, cache

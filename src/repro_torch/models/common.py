@@ -11,7 +11,8 @@ Differences from the reference, all forced by running eagerly on one device:
 
 - layer parameters are defined stacked (``[L, ...]``, :func:`stack_defs`,
   so counts and initial scales match the reference) and then held as a list
-  of per-layer dicts (:func:`split_layers`);
+  of per-layer dicts (:func:`split_layers`); :data:`STACKED` names the
+  subtrees that are stacked in the reference (:func:`split_stacked`);
 - ``scan_layers`` is a Python loop over that list;
 - ``shard_batch`` has no counterpart: it is a sharding constraint that is a
   no-op without a device mesh, and the port runs on one device.
@@ -19,13 +20,26 @@ Differences from the reference, all forced by running eagerly on one device:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 Tree = Any
+
+# the subtrees of a parameter tree that the reference stacks on a leading
+# axis (layers of one kind, or the hybrid's shared blocks); ``mtp/block`` is
+# a single layer and is not stacked
+STACKED = ("layers", "dense_layers", "ssm_layers", "shared", "enc_layers",
+           "dec_layers")
+
+# elements of float32 noise drawn at once by init_params: a larger tensor is
+# filled in pieces of this size, which bounds the transient memory of a
+# multi-billion-parameter init (DeepSeek's expert stacks) to 256 MB
+INIT_PIECE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +80,13 @@ def _init_tensor(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
     std = d.scale / math.sqrt(fan_in)
     if d.init == "small_normal":
         std = 0.02 * d.scale
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), INIT_PIECE):
+        n = min(INIT_PIECE, flat.numel() - i)
+        x = torch.randn(n, generator=gen, dtype=torch.float32, device=device)
+        flat[i:i + n] = (x * std).to(dtype)
+    return out
 
 
 def init_params(defs: Tree, gen: torch.Generator, dtype: torch.dtype,
@@ -96,11 +114,22 @@ def split_layers(stacked: Tree) -> List[Tree]:
     return [tree_map(lambda x, i=i: x[i], stacked) for i in range(n)]
 
 
+def split_stacked(params: Tree) -> Tree:
+    """``params`` with each subtree named in :data:`STACKED` split into a
+    list of per-layer (per-block) trees; the other leaves as they are."""
+    return {k: split_layers(v) if k in STACKED else v
+            for k, v in params.items()}
+
+
 def stack_trees(trees: Sequence[Tree]) -> Tree:
-    """A list of per-layer trees of tensors -> one tree of ``[L, ...]``."""
+    """A list of per-layer trees of tensors -> one tree of ``[L, ...]``
+    (dicts by key, tuples by position)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_trees([t[k] for t in trees]) for k in sorted(first)}
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
     return torch.stack(list(trees))
 
 
@@ -144,6 +173,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(length: int, d_model: int) -> np.ndarray:
+    pos = np.arange(length)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    angle = pos / np.power(10000.0, dim / d_model)
+    out = np.zeros((length, d_model), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    out.flags.writeable = False
+    return out
+
+
+def sinusoidal_positions(length: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """``[length, d_model]`` float32 sine / cosine positions, computed in
+    numpy float32 as the reference computes them (and cached: decode reads
+    one row a step)."""
+    return torch.tensor(_sinusoid_table(length, d_model), device=device)
+
+
+def sinusoidal_position(length: int, d_model: int, pos: int,
+                        device=None) -> torch.Tensor:
+    """Row ``pos`` of :func:`sinusoidal_positions` as ``[1, d_model]``."""
+    return torch.tensor(_sinusoid_table(length, d_model)[pos:pos + 1],
+                        device=device)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -1,13 +1,16 @@
-"""Decoder-only LM stack, dense GQA variant.
+"""Decoder-only LM stack: dense GQA, MLA, MoE and VLM-backbone variants.
 
-Twin of the dense path of the reference's ``models/transformer.py``.  Layer
-parameters are a list of per-layer dicts and the stack runs as a Python
-loop (``common.scan_layers``); caches keep the reference's stacked layout
-``{"layers": {"k", "v": [L, B, S, KV, hd]}}``.
-
-MoE, MLA, multi-token prediction and the VLM backbone are not ported yet
-(ROADMAP Queue A, model zoo); every entry point raises ``NotImplementedError``
-for a config that needs them rather than running another path.
+Twin of the reference's ``models/transformer.py``.  Layer parameters are
+lists of per-layer dicts and the stack runs as a Python loop
+(``common.scan_layers``).  A MoE config with leading dense layers keeps the
+reference's two groups, ``dense_layers`` (SwiGLU) then ``layers`` (MoE), in
+parameters and caches alike; caches keep the reference's stacked layout,
+``{"layers": {"k", "v": [L, B, S, KV, hd]}}`` for GQA and ``{"c_kv": [L, B,
+S, r], "k_rope": [L, B, S, rope]}`` for MLA.  A VLM prepends precomputed
+patch embeddings (``batch["patch_embeds"]``) to the token embeddings.  The
+multi-token-prediction subtree ``mtp`` (DeepSeek-V3) is defined and
+converted here; its only reader is the training loss, which is not ported
+yet (ROADMAP Queue A, training).
 """
 from __future__ import annotations
 
@@ -17,72 +20,92 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamDef, mlp_defs, rms_norm,
                                        scan_layers, split_layers, stack_defs,
                                        swiglu)
 
 Tree = Any
 
-NOT_PORTED = "not ported yet (ROADMAP Queue A, model zoo)"
-
-
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise for the parts of the reference's LM stack the port lacks."""
-    for field in ("moe", "mla", "vlm"):
-        if getattr(cfg, field) is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {field.upper()} layers are {NOT_PORTED}")
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is {NOT_PORTED}")
-
 
 # --------------------------------------------------------------------------- #
 # parameter definitions
 # --------------------------------------------------------------------------- #
-def _layer_defs(cfg: ArchConfig) -> Dict[str, Tree]:
-    return {
+def _attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    if cfg.mla is not None:
+        return attn.mla_defs(cfg)
+    return attn.gqa_defs(cfg)
+
+
+def _layer_defs(cfg: ArchConfig, use_moe: bool, d_ff: int) -> Dict[str, Tree]:
+    defs = {
         "ln1": ParamDef((cfg.d_model,), ("d_model",), init="ones"),
         "ln2": ParamDef((cfg.d_model,), ("d_model",), init="ones"),
-        "attn": attn.gqa_defs(cfg),
-        "mlp": mlp_defs(cfg.d_model, cfg.d_ff),
+        "attn": _attn_defs(cfg),
     }
+    if use_moe:
+        defs["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(cfg.d_model, d_ff)
+    return defs
+
+
+def _groups(cfg: ArchConfig) -> List[Tuple[str, int, bool]]:
+    """The layer groups in order: (name, depth, MoE?)."""
+    m = cfg.moe
+    if m is not None and m.first_dense_layers > 0:
+        return [("dense_layers", m.first_dense_layers, False),
+                ("layers", cfg.num_layers - m.first_dense_layers, True)]
+    return [("layers", cfg.num_layers, m is not None)]
 
 
 def lm_defs(cfg: ArchConfig) -> Dict[str, Tree]:
-    """The reference's tree: ``layers`` is stacked ``[L, ...]`` here (the
-    model splits it into per-layer dicts once the tensors exist)."""
-    check_dense(cfg)
+    """The reference's tree; each layer group is stacked ``[L, ...]`` here
+    (the model splits it into per-layer dicts once the tensors exist)."""
     V, D = cfg.padded_vocab, cfg.d_model
     defs: Dict[str, Tree] = {
         "embed": ParamDef((V, D), ("vocab", "d_model"), init="small_normal"),
         "final_norm": ParamDef((D,), ("d_model",), init="ones"),
-        "layers": stack_defs(_layer_defs(cfg), cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((D, V), ("d_model", "vocab"))
+    m = cfg.moe
+    for name, depth, use_moe in _groups(cfg):
+        d_ff = (m.d_ff_dense or cfg.d_ff) if name == "dense_layers" \
+            else cfg.d_ff
+        defs[name] = stack_defs(_layer_defs(cfg, use_moe, d_ff), depth)
+    if cfg.mtp:
+        defs["mtp"] = {
+            "proj": ParamDef((2 * D, D), (None, "d_model")),
+            "ln_h": ParamDef((D,), ("d_model",), init="ones"),
+            "ln_e": ParamDef((D,), ("d_model",), init="ones"),
+            "block": _layer_defs(cfg, m is not None, cfg.d_ff),
+        }
     return defs
 
 
 # --------------------------------------------------------------------------- #
 # layer bodies
 # --------------------------------------------------------------------------- #
+def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig) -> torch.Tensor:
+    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        f, _ = moe_mod.moe_forward(lp["moe"], x, cfg)
+    else:
+        f = swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"])
+    return h + f
+
+
 def _layer_fwd(h: torch.Tensor, lp: Dict, cfg: ArchConfig,
                impl: str) -> Tuple[torch.Tensor, Dict]:
-    """One layer; returns (output, the layer's kv cache contents)."""
+    """One layer; returns (output, the layer's cache contents).  MLA always
+    takes the einsum path, as in the reference."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    a, kv = attn.gqa_forward(lp["attn"], x, cfg, impl=impl)
-    h = h + a
-    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    f = swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"])
-    return h + f, kv
-
-
-def _trunk(params: Tree, h: torch.Tensor, cfg: ArchConfig,
-           impl: str) -> torch.Tensor:
-    for lp in params["layers"]:
-        h, _ = _layer_fwd(h, lp, cfg, impl)
-    return h
+    if cfg.mla is not None:
+        a, kv = attn.mla_forward(lp["attn"], x, cfg)
+    else:
+        a, kv = attn.gqa_forward(lp["attn"], x, cfg, impl=impl)
+    return _ffn(h + a, lp, cfg), kv
 
 
 def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -96,56 +119,77 @@ def _embed_tokens(params: Tree, tokens: torch.Tensor,
     return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
 
 
+def _embed_inputs(params: Tree, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings; a VLM prepends the precomputed patch embeddings
+    (the vision tower is a stub, as in the reference)."""
+    h = _embed_tokens(params, batch["tokens"], cfg)
+    if cfg.vlm is not None and "patch_embeds" in batch:
+        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    return h
+
+
 # --------------------------------------------------------------------------- #
 # public entry points
 # --------------------------------------------------------------------------- #
 def lm_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
                impl: str = "xla") -> torch.Tensor:
-    """Full-sequence logits ``[B, S, V]``."""
-    check_dense(cfg)
-    h = _embed_tokens(params, batch["tokens"], cfg)
-    return _logits(params, _trunk(params, h, cfg, impl), cfg)
+    """Full-sequence logits ``[B, P + S, V]`` (``P`` patch positions of a
+    VLM first)."""
+    h = _embed_inputs(params, batch, cfg)
+    for name, _, _ in _groups(cfg):
+        for lp in params[name]:
+            h, _ = _layer_fwd(h, lp, cfg, impl)
+    return _logits(params, h, cfg)
 
 
 def lm_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,
                impl: str = "xla") -> Tuple[torch.Tensor, Tree]:
-    """Process the full prompt; return (last-position logits, kv caches)."""
-    check_dense(cfg)
-    h = _embed_tokens(params, batch["tokens"], cfg)
-    h, kv = scan_layers(lambda c, lp: _layer_fwd(c, lp, cfg, impl), h,
-                        params["layers"])
-    return _logits(params, h[:, -1:, :], cfg), {"layers": kv}
+    """Process the full prompt; return (last-position logits, caches)."""
+    h = _embed_inputs(params, batch, cfg)
+    caches = {}
+    for name, _, _ in _groups(cfg):
+        h, caches[name] = scan_layers(
+            lambda c, lp: _layer_fwd(c, lp, cfg, impl), h, params[name])
+    return _logits(params, h[:, -1:, :], cfg), caches
 
 
 def _decode_layer(h, lp, cache, pos: int, cfg: ArchConfig):
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(lp["attn"], x, cache, pos, cfg)
-    h = h + a
-    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    f = swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"])
-    return h + f
+    if cfg.mla is not None:
+        a, _ = attn.mla_decode(lp["attn"], x, cache, pos, cfg)
+    else:
+        a, _ = attn.gqa_decode(lp["attn"], x, cache, pos, cfg)
+    return _ffn(h + a, lp, cfg)
 
 
 def lm_decode_step(params: Tree, cache: Tree, batch: Dict, cfg: ArchConfig
                    ) -> Tuple[torch.Tensor, Tree]:
     """One decode step.  batch: {"tokens": [B,1] int, "pos": int}.  The
-    token's keys and values are written into ``cache`` in place; the same
-    cache is returned."""
-    check_dense(cfg)
+    token's cache rows are written into ``cache`` in place; the same cache
+    is returned."""
     pos = int(batch["pos"])
     h = _embed_tokens(params, batch["tokens"], cfg)
-    layer_caches: List[Dict] = split_layers(cache["layers"])
-    for lp, lc in zip(params["layers"], layer_caches):
-        h = _decode_layer(h, lp, lc, pos, cfg)
+    for name, _, _ in _groups(cfg):
+        for lp, lc in zip(params[name], split_layers(cache[name])):
+            h = _decode_layer(h, lp, lc, pos, cfg)
     return _logits(params, h, cfg), cache
 
 
 def lm_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
-    """ParamDef tree describing the decode cache (stacked over layers)."""
-    check_dense(cfg)
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    per_layer = {
-        name: ParamDef((batch, seq, KV, hd),
-                       ("batch", "kv_seq", "kv_heads", None), init="zeros")
-        for name in ("k", "v")}
-    return {"layers": stack_defs(per_layer, cfg.num_layers)}
+    """ParamDef tree describing the decode cache (stacked per group)."""
+    if cfg.mla is not None:
+        c = cfg.mla
+        per_layer = {
+            "c_kv": ParamDef((batch, seq, c.kv_lora_rank),
+                             ("batch", "kv_seq", None), init="zeros"),
+            "k_rope": ParamDef((batch, seq, c.qk_rope_head_dim),
+                               ("batch", "kv_seq", None), init="zeros"),
+        }
+    else:
+        KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        per_layer = {
+            name: ParamDef((batch, seq, KV, hd),
+                           ("batch", "kv_seq", "kv_heads", None), init="zeros")
+            for name in ("k", "v")}
+    return {name: stack_defs(per_layer, depth)
+            for name, depth, _ in _groups(cfg)}

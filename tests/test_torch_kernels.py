@@ -545,7 +545,7 @@ def _normal(rng, shape):
 
 
 FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
-                (1, 512, 2, 2, 128), (3, 64, 6, 3, 16)]
+                (1, 512, 2, 2, 128), (3, 64, 6, 3, 16), (2, 128, 4, 4, 80)]
 
 
 @pytest.mark.parametrize("causal", (True, False))
@@ -580,6 +580,39 @@ def test_flash_attention_plain_ragged_lengths_match_reference_oracle(
     got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                               causal=causal)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("B,S,H,KV", [(1, 96, 4, 4), (2, 160, 8, 8),
+                                      (1, 1, 2, 2)])
+def test_flash_attention_plain_head_dim_80_matches_reference_kernel(
+        B, S, H, KV, dtype):
+    """zamba2's head dim (80: no power of two, staged in 128-column tiles on
+    the card) with its GQA 1:1, causal, at lengths that end inside the
+    kernel's 64-row tile, against the reference's Pallas kernel in interpret
+    mode (its wrapper halves the block until it divides S)."""
+    rng = np.random.default_rng(S + H + 80)
+    q, k, v = (_normal(rng, (B, S, n, 80)) for n in (H, KV, KV))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(ref_ops.flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), causal=True), np.float32)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt)
+                                for a in (q, k, v)), causal=True)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, H, 80)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * 10)
+
+
+def test_flash_head_dims_are_the_kernels_instantiations():
+    """``HEAD_DIMS``, which the wrapper checks, is the set of head dims the
+    CUDA source instantiates (its ``REPRO_FLASH_CASE`` switch)."""
+    from repro_torch.kernels import flash_attention as fa
+    src = (pathlib.Path(fa.__file__).parent / "csrc"
+           / "flash_attention.cu").read_text()
+    cases = tuple(int(d) for d in re.findall(
+        r"^\s*REPRO_FLASH_CASE\((\d+)\)", src, re.M))
+    assert cases == fa.HEAD_DIMS == (16, 32, 64, 80, 128)
 
 
 def _flash_tiles_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -643,7 +676,7 @@ def test_flash_attention_bf16_tile_rounding_matches_reference(B, S, H, KV, d,
 
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
-              (1, 300, 4, 1, 64, 128, 300)]
+              (1, 300, 4, 1, 64, 128, 300), (1, 64, 80, 1, 64, 64, 32)]
 
 
 def _ssd_inputs(seed, b, s, h, g, p, n):
@@ -660,8 +693,9 @@ def test_ssd_scan_plain_forms_match_both_reference_forms(b, s, h, g, p, n,
                                                          chunk, port_form):
     """The port's sequential recurrence (``ops.ssd_scan`` on the CPU) and its
     chunked model form against the reference's Pallas kernel (interpret)
-    and its sequential oracle, y and final state at 1e-4.  The last shape
-    is mamba2's head layout as one chunk of 300."""
+    and its sequential oracle, y and final state at 1e-4.  The last two
+    shapes are mamba2's head layout as one chunk of 300 and zamba2's (80
+    heads of 64, d_state 64, one group) over two chunks."""
     arrays = _ssd_inputs(s + h, b, s, h, g, p, n)
     tin = [torch.from_numpy(a) for a in arrays]
     if port_form == "sequential":
@@ -707,7 +741,7 @@ def test_ssd_chunked_ref_matches_pallas_and_sequential(b, s, h, g, p, n,
 @pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
     (1, 300, 2, 1, 64, 128, 300), (1, 512, 2, 1, 64, 128, 64),
     (1, 256, 4, 2, 64, 128, 64), (1, 192, 3, 1, 20, 36, 64),
-    (1, 200, 4, 2, 32, 64, 64)])
+    (1, 200, 4, 2, 32, 64, 64), (1, 256, 80, 1, 64, 64, 64)])
 def test_ssd_chunked_ref_bf16_points_meet_the_bf16_bar(b, s, h, g, p, n,
                                                        chunk):
     """With the bf16 kernel's rounding points (hi / lo bf16 pairs for w, the
@@ -802,6 +836,8 @@ def test_model_kernel_wrappers_on_cpu_count_nothing_and_check_inputs():
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24),
                             torch.zeros(1, 8, 2, 24))
+    ops.flash_attention(torch.zeros(1, 8, 4, 80), torch.zeros(1, 8, 4, 80),
+                        torch.zeros(1, 8, 4, 80))
     with pytest.raises(ValueError, match="like the first input"):
         ops.ssd_scan(x, dt.to(torch.bfloat16), A, B, C)
     with pytest.raises(ValueError, match="weight"):

@@ -30,9 +30,10 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import smoke_config as ref_smoke_config
+from repro.configs.base import MLAConfig as RefMLAConfig
 from repro.models.api import Model as RefModel
 from repro_torch import convert
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ShapeCell, get_config, smoke_config
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
@@ -213,41 +214,67 @@ def test_params_from_numpy_splits_the_stacked_layers():
     np.testing.assert_array_equal(
         bf["embed"].float().numpy(),
         np.asarray(jnp.asarray(tree["embed"], jnp.bfloat16), np.float32))
-    with pytest.raises(NotImplementedError):
-        convert.params_from_numpy(smoke_config("zamba2-2.7b"), {},
-                                  device="cpu")
+    # every stacked subtree of the other families, and nothing else
+    for name, stacked in (("zamba2-2.7b", ("ssm_layers", "shared")),
+                          ("deepseek-v3-671b", ("dense_layers", "layers")),
+                          ("whisper-medium", ("enc_layers", "dec_layers"))):
+        cfg = smoke_config(name)
+        tree = jax.tree.map(np.asarray, RefModel(ref_smoke_config(name))
+                            .init(jax.random.PRNGKey(2)))
+        params = convert.params_from_numpy(cfg, tree, device="cpu")
+        for key in stacked:
+            n = len(jax.tree.leaves(tree[key])[0])
+            assert isinstance(params[key], list) and len(params[key]) == n
+            first = jax.tree.leaves(tree[key])[0][n - 1]
+            np.testing.assert_array_equal(
+                common.tree_leaves(params[key][n - 1])[0].numpy(), first)
+        if "mtp" in tree:
+            np.testing.assert_array_equal(
+                params["mtp"]["block"]["ln1"].numpy(),
+                tree["mtp"]["block"]["ln1"])
 
 
 def test_kernel_lowerings_on_cpu_count_no_launch():
+    """On CPU tensors every kernel lowering runs the plain version and
+    counts no launch: qwen2 and whisper's decoder (flash), llava behind its
+    patch prefix (flash), zamba2 under both impls, mamba2 (pallas)."""
     ops.reset_launch_counts()
-    for name, impl in (("qwen2-0.5b", "flash"), ("mamba2-130m", "pallas")):
+    cell = ShapeCell("c", 12, 1, "prefill")
+    for name, impl in (("qwen2-0.5b", "flash"), ("mamba2-130m", "pallas"),
+                       ("zamba2-2.7b", "flash"), ("zamba2-2.7b", "pallas"),
+                       ("whisper-medium", "flash"),
+                       ("llava-next-mistral-7b", "flash")):
         model = build_model(smoke_config(name), impl=impl, device="cpu")
         params = model.init(0)
-        model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+        model.prefill(params, model.make_inputs(
+            cell, torch.Generator().manual_seed(0)))
     assert set(ops.launch_counts().values()) == {0}
 
 
 # --------------------------------------------------------------------------- #
 # (e): entry points
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("name", ("deepseek-v2-lite-16b", "deepseek-v3-671b",
-                                  "zamba2-2.7b", "whisper-medium",
-                                  "llava-next-mistral-7b"))
-def test_unported_families_raise(name):
-    """MoE (with MLA), hybrid, audio and VLM configs are not ported yet and
-    say so rather than running another path."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(name, device="cpu")
-
-
 @pytest.mark.parametrize("field", ("mla", "mtp"))
-def test_dense_configs_with_unported_parts_raise(field):
+def test_dense_config_with_mla_or_mtp_follows_reference(field):
+    """A dense config given MLA attention or an MTP head builds the
+    reference's tree (MLA projections; the ``mtp`` subtree) and serves."""
     cfg = smoke_config("qwen2-0.5b")
     value = MLAConfig(q_lora_rank=0, kv_lora_rank=32, qk_nope_head_dim=16,
                       qk_rope_head_dim=8, v_head_dim=16) if field == "mla" \
         else True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, **{field: value}), device="cpu")
+    model = build_model(dataclasses.replace(cfg, **{field: value}),
+                        device="cpu")
+    rcfg = ref_smoke_config("qwen2-0.5b")
+    rvalue = RefMLAConfig(**dataclasses.asdict(value)) if field == "mla" \
+        else True
+    ref = RefModel(dataclasses.replace(rcfg, **{field: rvalue}))
+    shapes = jax.tree.map(lambda d: tuple(d.shape), ref.param_defs(),
+                          is_leaf=lambda x: hasattr(x, "axes"))
+    assert common.tree_map(lambda d: tuple(d.shape),
+                           model.param_defs()) == shapes
+    logits, _ = model.prefill(model.init(0), {
+        "tokens": torch.zeros((1, 6), dtype=torch.long)})
+    assert logits.shape == (1, 1, cfg.padded_vocab)
 
 
 def test_unknown_impl_raises():
