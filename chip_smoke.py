@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Eight phases, one JSON line each (phases 2 and 3 two); any failure ends the
-run with a non-zero exit code:
+Nine phases, one JSON line each (phases 2 and 3 two, phase 7 five); any
+failure ends the run with a non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
   2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc,
@@ -82,6 +82,24 @@ run with a non-zero exit code:
                        embeddings; whisper: beside 1500 encoder frames)
                        served in the config's bf16, kernel launches a
                        prefill asserted per model
+  7. train             the training path (impl="xla": no kernel launches,
+                       asserted): qwen2-0.5b at full width and depth in bf16
+                       (S = 512, global batch 8, remat "dots"), 24 steps with
+                       checkpoints every 8 and an injected failure at step
+                       13 (restarts == [13], the loss falls, the latest
+                       checkpoint is step 24 and a cold restore gives the
+                       final parameters and AdamW state bit for bit), its
+                       step time, tokens/s, peak memory, the idle share of a
+                       profiled step and the model-FLOP share of 989 TFLOP/s;
+                       mamba2-130m at full width with int8 gradient
+                       compression (the loss falls); python -m
+                       repro_torch.launch.train --steps 4 in-process for
+                       every config of configs/ (the default 100m preset,
+                       float32: finite losses); card float32 against host
+                       float64 at the 100m width and 2 layers for qwen2,
+                       mamba2 and deepseek-v3 (MTP gradients non-zero), and
+                       one AdamW step card against host; and impl="flash"
+                       refusing to be differentiated
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
@@ -116,6 +134,7 @@ import io
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -149,6 +168,17 @@ from repro_torch.eval import sweep
 from repro_torch.exp import ExperimentSpec, expand_experiment
 from repro_torch.exp.artifacts import read_manifest, save_critic
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.train import make_pipeline, preset_config
+from repro_torch.configs import ARCH_NAMES
+from repro_torch.data import DataPipeline
+from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed import compression
+from repro_torch.distributed.failure import FailureInjector
+from repro_torch.models.api import Model
+from repro_torch.train.loop import (TrainConfig, batch_to_device,
+                                    make_train_step, train, value_and_grad)
+from repro_torch.train.optimizer import adamw_init, adamw_update
 from repro_torch.sim import Simulator, make_scenario, workload_for
 from repro_torch.sim.engine import DeadlineAwareAllocation, StaticPlacement
 from repro_torch.sim.event_core import NumpyBatchedEventCore
@@ -2124,6 +2154,311 @@ def phase_serve():
     return by_kernel
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the training path
+# --------------------------------------------------------------------------- #
+# qwen2-0.5b at full width and depth in its bf16: S = 512, global batch 8,
+# 24 steps, checkpoints every 8, an injected failure at step 13
+TRAIN_S, TRAIN_B = 512, 8
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 24, 8, 13
+MAMBA_TRAIN_STEPS = 16
+# The configs' weights are bf16 and AdamW casts them back after each step,
+# as in the reference (no float32 master copy): under the TrainConfig
+# default (20 warm-up steps to 3e-4) most steps of a 24-step run are under
+# half a bf16 ulp of the weights (|w| ~ 0.03: half an ulp 1.2e-4) and are
+# lost.  These runs take a peak of 3e-3 after 4 warm-up steps.
+TRAIN_LR = dict(peak_lr=3e-3, warmup=4)
+# The reference's initialisation (ROADMAP Queue C P3) makes the untrained
+# 24-layer qwen2 chaotic: its gradient norm is ~2.5e15 on the card (~90 at 2
+# layers), so clipped AdamW walks at random and the loss does not fall.  As
+# in phase serve, the run starts from tempered weights (temper: wq, wk x
+# 1/8; gradient norm ~14 at d 896): they go in as the step-0 checkpoint,
+# which train() restores before its first step, as a run warm-started from
+# given weights does.
+LAUNCH_STEPS = 4             # the launcher's default preset, every config
+TIMED_STEPS = 5
+# card (float32, TF32 off) against the host's float64 path at the 100m
+# width and 2 layers: relative loss, gradient leaves of their scale, one
+# AdamW step (relative)
+TRAIN_PARITY = ("qwen2-0.5b", "mamba2-130m", "deepseek-v3-671b")
+TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 256
+LOSS_TOL, GRAD_TOL, ADAMW_TOL = 1e-5, 1e-4, 1e-6
+
+
+def leaf_rel(got, want) -> float:
+    """max |got - want| over max |want| (float64)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def train_parity(name: str) -> dict:
+    """The card's float32 loss and gradients against the host's float64
+    path on the same (tempered) weights and batch; one AdamW step on the
+    card against the same step on the host."""
+    cfg = dataclasses.replace(preset_config(name, "100m"), num_layers=2)
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64",
+                                compute_dtype="float64")
+    model = build_model(cfg)
+    params = model.init(seeded(SEED))
+    temper(params)
+    host = tree_map(lambda t: t.detach().cpu().double(), params)
+    pipe = DataPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_PARITY_S,
+                        global_batch=TRAIN_PARITY_B)
+    batch = pipe.next_batch()
+    loss, gtree = value_and_grad(model, params, batch_to_device(batch, DEV))
+    loss64, grads64 = value_and_grad(build_model(cfg64, device="cpu"), host,
+                                     batch_to_device(batch, "cpu"))
+    loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    grad_errs = [leaf_rel(g, w) for g, w in zip(tree_leaves(gtree),
+                                                 tree_leaves(grads64))]
+    if loss_err > LOSS_TOL or max(grad_errs) > GRAD_TOL:
+        raise AssertionError(f"train parity {name}: loss {loss_err:.3g} "
+                             f"(bar {LOSS_TOL}), worst gradient leaf "
+                             f"{max(grad_errs):.3g} (bar {GRAD_TOL})")
+    decay = model.decay_mask()
+    lr = torch.tensor(1e-3)
+    dev_p, dev_s = adamw_update(params, gtree, adamw_init(params),
+                                lr=lr.to(DEV), decay=decay)
+    cpu_p = tree_map(lambda t: t.detach().cpu(), params)
+    cpu_g = tree_map(lambda t: t.detach().cpu(), gtree)
+    host_p, host_s = adamw_update(cpu_p, cpu_g, adamw_init(cpu_p), lr=lr,
+                                  decay=decay)
+    adamw_err = max(leaf_rel(a, b) for x, y in ((dev_p, host_p),
+                                                (dev_s.m, host_s.m),
+                                                (dev_s.v, host_s.v))
+                    for a, b in zip(tree_leaves(x), tree_leaves(y)))
+    if adamw_err > ADAMW_TOL:
+        raise AssertionError(f"train parity {name}: one AdamW step on the "
+                             f"card {adamw_err:.3g} from the host's (bar "
+                             f"{ADAMW_TOL})")
+    mtp = None
+    if cfg.mtp:
+        mtp = max(float(g.abs().max()) for g in tree_leaves(gtree["mtp"]))
+        if not mtp > 0:
+            raise AssertionError(f"{name}: the MTP head has no gradient")
+    return {"model": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "batch": TRAIN_PARITY_B, "seq": TRAIN_PARITY_S,
+            "loss": float(loss), "loss_rel_err_vs_f64": loss_err,
+            "worst_grad_leaf_err_vs_f64": max(grad_errs),
+            "adamw_card_vs_host_rel_err": adamw_err,
+            "mtp_grad_max": mtp}
+
+
+def train_full(name: str, steps: int, compress: bool, fail_at, ckpt_dir):
+    """``train`` of ``name`` at the full preset (impl="xla", remat="dots",
+    ``TRAIN_LR``) with the state of every checkpoint the loop writes kept
+    aside on the card: returns the history, the wall seconds of the run, the
+    seconds each save took, and the last saved state.  With a
+    ``ckpt_dir``, the run starts from tempered weights saved there as step 0
+    (see TRAIN_LR)."""
+    cfg = preset_config(name, "full")
+    model = Model(cfg, remat="dots")
+    pipe = make_pipeline(cfg, TRAIN_S, TRAIN_B)
+    tc = TrainConfig(steps=steps, checkpoint_every=TRAIN_EVERY,
+                     checkpoint_dir=ckpt_dir, compress_grads=compress,
+                     **TRAIN_LR)
+    if ckpt_dir:
+        params = model.init(seeded(SEED))
+        temper(params)
+        ckpt.save_checkpoint(ckpt_dir, 0, params,
+                             opt_state=adamw_init(params),
+                             extra={"pipeline": pipe.state_dict()})
+        del params
+    saved, save_s = {}, []
+    real_save = ckpt.save_checkpoint
+
+    def save(ckpt_dir, step, params, opt_state=None, extra=None):
+        t0 = time.perf_counter()
+        out = real_save(ckpt_dir, step, params, opt_state=opt_state,
+                        extra=extra)
+        save_s.append(time.perf_counter() - t0)
+        saved.update(step=step, params=params, opt_state=opt_state)
+        return out
+    ckpt.save_checkpoint = save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = train(model, pipe, tc, injector=FailureInjector(fail_at),
+                     verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ckpt.save_checkpoint = real_save
+    return model, pipe, tc, hist, wall, save_s, saved
+
+
+def time_train_steps(model, tc, params, opt, pipe):
+    """Median ms of ``TIMED_STEPS`` synchronised train steps from the given
+    state, then one step under torch.profiler: its wall ms, device busy ms
+    and idle share."""
+    step = make_train_step(model, tc, tc.compress_grads)
+    batch = batch_to_device(pipe.next_batch(), DEV)
+    comp_state = compression.init_state(params) if tc.compress_grads \
+        else None
+    params, opt, comp_state, _ = step(params, opt, batch, comp_state)
+    walls = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, comp_state, m = step(params, opt, batch, comp_state)
+        float(m["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    state = {"p": params, "o": opt, "c": comp_state}
+
+    def one():
+        state["p"], state["o"], state["c"], _ = step(
+            state["p"], state["o"], batch, state["c"])
+    wall, per, calls = device_times(one)
+    busy = sum(per.values()) / 1e3
+    return {"step_ms_median": float(np.median(walls)),
+            "step_ms_all": walls, "profiled_wall_ms": wall,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if per else None,
+            "kernels_a_step": int(round(sum(calls.values()))),
+            "note": "idle share of one step under torch.profiler (its host "
+                    "overhead included in the wall)"}
+
+
+def phase_train():
+    """The training path: qwen2-0.5b at full width and depth with a
+    restart; mamba2-130m with int8 compression; the launcher's default
+    preset for every config; card against host float64; the kernel guard.
+    Training is impl="xla": no kernel may launch in this phase."""
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    try:
+        # qwen2-0.5b: 24 steps, checkpoints every 8, a failure at step 13
+        name = "qwen2-0.5b"
+        model, pipe, tc, hist, wall, save_s, saved = train_full(
+            name, TRAIN_STEPS, False, [TRAIN_FAIL], tmp)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         pathlib.Path(tmp).rglob("*") if f.is_file())
+        # a cold restore: a fresh template, the newest checkpoint
+        fresh = model.init(seeded(SEED + 1))
+        t0 = time.perf_counter()
+        state, step, extra = ckpt.restore_checkpoint(
+            tmp, {"params": fresh, "opt_state": adamw_init(fresh)})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = tree_leaves([state["params"], state["opt_state"].m,
+                           state["opt_state"].v, state["opt_state"].step])
+        want = tree_leaves([saved["params"], saved["opt_state"].m,
+                            saved["opt_state"].v, saved["opt_state"].step])
+        restored_equal = len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want))
+        del saved, want, got, fresh
+        cfg = model.cfg
+        timing = time_train_steps(model, tc, state["params"],
+                                  state["opt_state"], pipe)
+        del state
+        tokens = TRAIN_B * TRAIN_S
+        step_s = timing["step_ms_median"] / 1e3
+        model_flops = 3.0 * cfg.flops_per_token(context_len=TRAIN_S // 2) \
+            * tokens
+        emit("train_full", model=name, layers=cfg.num_layers,
+             d_model=cfg.d_model, param_count=model.param_count(),
+             dtype=cfg.param_dtype, impl="xla", remat="dots", seq=TRAIN_S,
+             global_batch=TRAIN_B, steps=TRAIN_STEPS, **TRAIN_LR,
+             restarts=hist["restarts"], steps_run=len(hist["loss"]),
+             loss=hist["loss"], grad_norm=hist["grad_norm"],
+             stragglers=hist["stragglers"],
+             latest_step=ckpt.latest_step(tmp), restored_step=step,
+             restored_extra=extra, cold_restore_bit_equal=restored_equal,
+             train_wall_s=wall, checkpoint_save_s=save_s,
+             cold_restore_s=restore_s,
+             checkpoint_bytes_each=ckpt_bytes / (len(save_s) + 1),
+             peak_memory_bytes=peak, disk_free_gb_before=free_gb, **timing,
+             steps_per_s=1.0 / step_s, tokens_per_s=tokens / step_s,
+             model_flops_per_step=model_flops,
+             mfu_of_989_tflops_bf16=model_flops / step_s / BF16_TC_FLOPS)
+        if hist["restarts"] != [TRAIN_FAIL]:
+            raise AssertionError(f"{name}: restarts {hist['restarts']}, "
+                                 f"expected [{TRAIN_FAIL}]")
+        if not (hist["loss"][-1] < hist["loss"][0]) or \
+                not np.isfinite(hist["loss"]).all():
+            raise AssertionError(f"{name}: loss {hist['loss'][0]} -> "
+                                 f"{hist['loss'][-1]}")
+        if ckpt.latest_step(tmp) != TRAIN_STEPS or step != TRAIN_STEPS or \
+                extra != {"pipeline": {"step": TRAIN_STEPS}}:
+            raise AssertionError(f"{name}: latest checkpoint "
+                                 f"{ckpt.latest_step(tmp)}, restored step "
+                                 f"{step}, {extra}")
+        if not restored_equal:
+            raise AssertionError(f"{name}: the cold restore differs from "
+                                 "the final state")
+        del model, pipe
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # mamba2-130m with int8 gradient compression: the loss falls
+        model, pipe, tc, hist, wall, _, _ = train_full(
+            "mamba2-130m", MAMBA_TRAIN_STEPS, True, [], None)
+        emit("train_compressed", model="mamba2-130m",
+             dtype=model.cfg.param_dtype,
+             steps=len(hist["loss"]), **TRAIN_LR, loss=hist["loss"],
+             grad_norm=hist["grad_norm"],
+             train_wall_s=wall,
+             peak_memory_bytes=torch.cuda.max_memory_allocated())
+        if not (hist["loss"][-1] < hist["loss"][0]):
+            raise AssertionError(f"mamba2 compressed: loss {hist['loss'][0]}"
+                                 f" -> {hist['loss'][-1]}")
+        del model, pipe
+        torch.cuda.empty_cache()
+
+        # the launcher's default preset (100m, float32), every config
+        launched = {}
+        for arch in ARCH_NAMES:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                h = launch_train.main(["--arch", arch, "--steps",
+                                       str(LAUNCH_STEPS)])
+            if len(h["loss"]) != LAUNCH_STEPS or \
+                    not np.isfinite(h["loss"]).all():
+                raise AssertionError(f"launch.train {arch}: {h['loss']}")
+            launched[arch] = {"loss": h["loss"],
+                              "wall_s": time.perf_counter() - t0}
+            torch.cuda.empty_cache()
+        emit("train_launcher", preset="100m", steps=LAUNCH_STEPS,
+             seq=TRAIN_S, global_batch=TRAIN_B, runs=launched)
+
+        # card against host float64, TF32 off (as everywhere in this script)
+        parity = [train_parity(name) for name in TRAIN_PARITY]
+        emit("train_parity", tolerance={"loss_rel": LOSS_TOL,
+                                        "grad_leaf_of_scale": GRAD_TOL,
+                                        "adamw_rel": ADAMW_TOL},
+             models=parity)
+
+        # the kernel guard: impl="flash" refuses to be differentiated
+        cfg = dataclasses.replace(preset_config("qwen2-0.5b", "100m"),
+                                  num_layers=2)
+        model = build_model(cfg, impl="flash")
+        params = model.init(seeded(SEED))
+        batch = batch_to_device(DataPipeline(
+            vocab_size=cfg.vocab_size, seq_len=128,
+            global_batch=2).next_batch(), DEV)
+        try:
+            value_and_grad(model, params, batch)
+        except RuntimeError as err:
+            if "no backward" not in str(err):
+                raise
+            guard = str(err)
+        else:
+            raise AssertionError("impl='flash' loss was differentiated "
+                                 "through the kernel")
+        counts = ops.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"phase train launched kernels: {counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_summary", seconds=time.perf_counter() - t_phase,
+         kernel_guard=guard, kernel_launches=counts)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nodes", type=int, default=480,
@@ -2150,6 +2485,9 @@ def main() -> None:
     p.add_argument("--critic-epochs", type=int, default=2000,
                    help="training epochs of the critic (the reference's "
                         "2000)")
+    p.add_argument("--only", choices=("train",),
+                   help="a rehearsal: phase env, then only this phase (no "
+                        "kernel is built; no kernels line, no ok line)")
     args = p.parse_args()
 
     # float32 products in full float32 everywhere (the defaults for matmul,
@@ -2161,6 +2499,10 @@ def main() -> None:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=kind, capability=list(torch.cuda.get_device_capability(0)),
          nvidia_smi=smi)
+    if args.only == "train":
+        phase_train()
+        print(smi, flush=True)
+        return
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -2178,6 +2520,7 @@ def main() -> None:
     eval_launches, serve_launches = phase_eval(critic)
     alloc_launches = phase_allocate_cluster(args)
     served = phase_serve()
+    phase_train()
 
     def row(name, rec, launches, replaces, tolerance, path):
         lib_ms = rec.get("library_ms")

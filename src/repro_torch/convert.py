@@ -18,7 +18,8 @@ configs' leading dense layers), ``ssm_layers`` and ``shared`` (hybrid: the
 Mamba2 layers and the shared attention blocks), ``enc_layers`` and
 ``dec_layers`` (encoder-decoder).  Every other leaf (``embed``,
 ``final_norm``, ``lm_head``, ``enc_norm``, the unstacked ``mtp`` subtree)
-keeps its name and shape.
+keeps its name and shape.  :func:`params_to_numpy` is the inverse: the
+port's parameters back in the reference's stacked tree of numpy arrays.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import resolve_device
-from repro_torch.models.common import split_stacked, tree_map
+from repro_torch.models.common import (split_stacked, stack_stacked,
+                                       tree_leaves, tree_map)
 from repro_torch.sim.types import (InstanceCategory, InstanceSpec, NodeSpec,
                                    Request, RequestClass)
 from repro_torch.sim.workload import ServiceWorkModel
@@ -110,3 +112,27 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
     return split_stacked(tree_map(
         lambda a: _array_to_torch(a).to(device=device, dtype=dtype),
         dict(tree)))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t``; bfloat16 (which numpy lacks) comes back
+    as float32, which holds every bfloat16 value exactly."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def params_to_numpy(cfg: ArchConfig, params: Mapping[str, Any]
+                    ) -> Dict[str, Any]:
+    """The port's parameters (any device, in ``cfg.param_dtype``) -> the
+    reference's tree of numpy arrays: every per-layer list stacked back on
+    a leading ``[L]`` axis (see the module docstring).  bfloat16 leaves come
+    back as float32 (:func:`tensor_to_numpy`), so ``params_from_numpy(cfg,
+    params_to_numpy(cfg, p))`` gives ``p`` again."""
+    dtype = getattr(torch, cfg.param_dtype)
+    bad = {t.dtype for t in tree_leaves(params)} - {dtype}
+    if bad:
+        raise ValueError(f"{cfg.name}: parameters in {sorted(map(str, bad))}"
+                         f", expected {dtype}")
+    return tree_map(tensor_to_numpy, stack_stacked(dict(params)))

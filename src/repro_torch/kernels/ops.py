@@ -5,6 +5,14 @@ and adds one to its launch count.  It takes the kernel's plain version
 (:mod:`repro_torch.kernels.ref`) only for tensors that lie on the CPU; on
 CUDA tensors it launches the kernel or raises — there is no fallback.  The
 kernels mask the ragged edge themselves, so nothing is padded here.
+
+No kernel has a backward pass (neither has the reference's: it cannot
+differentiate through its Pallas kernels).  A kernel writes into a fresh
+tensor outside autograd, so its output would silently be a constant to a
+backward pass; ``flash_attention`` and ``ssd_scan``, which the models reach,
+therefore raise where grad mode is on and an input requires grad, on every
+device, so that the CPU's differentiable plain path and the card agree.
+Training takes ``impl="xla"``, as in the reference.
 """
 from __future__ import annotations
 
@@ -125,6 +133,15 @@ def alloc_active_set(psi: torch.Tensor, omega: torch.Tensor,
     return out
 
 
+def _refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward pass, and an input requires "
+            f"grad; differentiate the impl='xla' path (as the reference's "
+            f"training does) or run the kernel under torch.no_grad()")
+
+
 def _check_model_dtype(name: str, dtype: torch.dtype) -> None:
     if dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
@@ -146,7 +163,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d] in q's dtype (blockwise
     online softmax, float32 statistics).  Inputs are made contiguous; any
-    ``S`` is taken as it is (the kernel masks the tails)."""
+    ``S`` is taken as it is (the kernel masks the tails).  Raises under
+    autograd (see the module docstring)."""
+    _refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or q.numel() == 0:
         raise ValueError(f"flash_attention: expected non-empty q [B,S,H,d] "
                          f"and k, v [B,S,KV,d], got {tuple(q.shape)}, "
@@ -181,8 +200,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     As in the reference wrapper: the B/C group of head ``h`` is ``h // (h //
     g)`` (resolved here by index, never copied); ``chunk`` is halved until it
     divides ``s``; an ``initial_state`` is not supported (decode uses the
-    O(1) recurrence instead).  All five inputs share one dtype.
+    O(1) recurrence instead).  All five inputs share one dtype.  Raises
+    under autograd (see the module docstring).
     """
+    _refuse_autograd("ssd_scan", x, dt, A, B, C, initial_state)
     if initial_state is not None:
         raise NotImplementedError("initial_state handled by decode path")
     if x.dim() != 4 or x.numel() == 0:

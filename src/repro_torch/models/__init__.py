@@ -11,9 +11,10 @@
   hybrid       Zamba2: Mamba2 layers with shared attention blocks
   encdec       Whisper: bidirectional encoder, causal decoder with cross
                attention
-  api          ``Model`` and ``build_model``: the serving path
+  api          ``Model`` and ``build_model``: the serving path, the
+               training loss, parameter / cache specs and axes
 
-Every family of ``configs/`` is served: ``dense``, ``ssm``, ``hybrid``,
-``moe``, ``audio`` and ``vlm``.  The training loss is not ported yet
-(ROADMAP Queue A, training).
+Every family of ``configs/`` is served and trained: ``dense``, ``ssm``,
+``hybrid``, ``moe``, ``audio`` and ``vlm`` (``Model.loss``; the training
+loop is ``repro_torch.train``).
 """

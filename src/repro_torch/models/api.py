@@ -3,10 +3,14 @@
 Twin of the reference's ``models/api.py``.  ``Model`` exposes:
 
   param_defs() / param_count() / init(gen)    — declarative params
+  param_specs() / param_axes() / decay_mask() — shapes, logical axes, and
+                                                which leaves AdamW decays
+  loss(params, batch)                         — the training objective
   forward(params, batch)                      — full-sequence logits
   prefill(params, batch)                      — prompt -> (logits, cache)
   decode_step(params, cache, batch)           — one token -> (logits, cache)
-  cache_defs(batch, seq) / init_cache / pad_cache
+  cache_defs(batch, seq) / cache_specs / cache_axes / init_cache /
+  pad_cache
   input_specs(cell) / make_inputs(cell, gen)  — a shape cell's inputs
 
 The serving path is ``build_model -> init -> prefill -> pad_cache ->
@@ -17,8 +21,12 @@ reference's strings: ``"xla"`` is the eager torch composite path,
 ``"flash"`` sends causal self-attention to the hand-written
 ``flash_attention`` kernel and ``"pallas"`` sends the SSD scan to the
 hand-written ``ssd_scan`` kernel; MLA takes the composite path under every
-``impl``, as in the reference.  ``loss`` and the training path are not
-ported yet (ROADMAP Queue A, training).
+``impl``, as in the reference.  ``loss`` is differentiable only under
+``impl="xla"``: the kernels have no backward pass, so their wrappers refuse
+tensors that require grad (the reference cannot differentiate through its
+Pallas kernels either and trains on ``"xla"``).  ``remat`` is the activation
+checkpointing of ``loss`` (``"none" | "dots" | "full"``, default
+``"dots"``, ``common.checkpointed``); it changes memory, never values.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``build_model(..., device=None)`` means ``"cuda"`` and raises
@@ -38,9 +46,11 @@ import torch
 from repro_torch.configs import ShapeCell, get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
-from repro_torch.models.common import (ParamDef, init_params,
-                                       param_count_tree, rms_norm,
-                                       scan_layers, split_layers,
+from repro_torch.models.common import (REMATS, STACKED, ParamDef,
+                                       checkpointed, cross_entropy_loss,
+                                       init_params, param_axes,
+                                       param_count_tree, param_specs,
+                                       rms_norm, scan_layers, split_layers,
                                        split_stacked, stack_defs, tree_map)
 
 Tree = Any
@@ -79,6 +89,19 @@ def _ssm_lm_forward(params, batch, cfg, impl="xla"):
     for lp in params["layers"]:
         h = h + ssm.ssm_forward(lp, h, cfg, impl=impl)
     return _ssm_lm_logits(params, h, cfg)
+
+
+def _ssm_lm_loss(params, batch, cfg, impl="xla", remat="dots"):
+    """Every Mamba2 layer checkpointed whole under any ``remat`` but
+    ``"none"``, as in the reference."""
+    layer = checkpointed(
+        lambda c, lp: c + ssm.ssm_forward(lp, c, cfg, impl=impl),
+        "full" if remat != "none" else "none")
+    h = _ssm_embed(params, batch["tokens"], cfg)
+    for lp in params["layers"]:
+        h = layer(h, lp)
+    logits = _ssm_lm_logits(params, h, cfg)
+    return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 def _ssm_lm_prefill(params, batch, cfg, impl="xla"):
@@ -132,6 +155,7 @@ class Model:
     cfg: ArchConfig
     impl: str = "xla"      # attention / SSD lowering: "xla" | "flash" | "pallas"
     device: Optional[Union[str, torch.device]] = None
+    remat: str = "dots"    # activation checkpointing of loss()
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
@@ -139,6 +163,9 @@ class Model:
                              f"{self.cfg.family!r}; families: {FAMILIES}")
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got "
+                             f"{self.remat!r}")
         self.device = resolve_device(self.device)
 
     # ---- params ---- #
@@ -151,6 +178,28 @@ class Model:
         if f == "audio":
             return encdec.encdec_defs(self.cfg)
         return transformer.lm_defs(self.cfg)
+
+    def param_specs(self) -> Tree:
+        """The reference's stacked tree of :class:`common.TensorSpec`."""
+        return param_specs(self.param_defs(),
+                           getattr(torch, self.cfg.param_dtype))
+
+    def param_axes(self) -> Tree:
+        """The reference's stacked tree of logical-axis tuples."""
+        return param_axes(self.param_defs())
+
+    def decay_mask(self) -> Tree:
+        """Per leaf of :meth:`init`'s tree, whether AdamW decays it: as in
+        the reference, a leaf of rank >= 2 *in the stacked layout*, so the
+        per-layer norms ``[L, D]`` and Mamba2's ``A_log`` / ``D_skip`` /
+        ``dt_bias`` ``[L, H]`` are decayed although each layer's piece here
+        is 1-D."""
+        defs = self.param_defs()
+        out = {}
+        for k, d in defs.items():
+            mask = tree_map(lambda pd: len(pd.shape) >= 2, d)
+            out[k] = ([mask] * _stacked_depth(d) if k in STACKED else mask)
+        return out
 
     def init(self, gen: Union[torch.Generator, int]) -> Tree:
         """Parameters on the model's device from ``gen`` (a generator on that
@@ -165,6 +214,22 @@ class Model:
         return param_count_tree(self.param_defs())
 
     # ---- compute ---- #
+    def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
+        """The training objective (a float32 scalar): next-token cross
+        entropy, plus the MoE aux and MTP losses where configured."""
+        f = self.cfg.family
+        if f == "ssm":
+            return _ssm_lm_loss(params, batch, self.cfg, self.impl,
+                                self.remat)
+        if f == "hybrid":
+            return hybrid.hybrid_loss(params, batch, self.cfg,
+                                      impl=self.impl, remat=self.remat)
+        if f == "audio":
+            return encdec.encdec_loss(params, batch, self.cfg,
+                                      impl=self.impl, remat=self.remat)
+        return transformer.lm_loss(params, batch, self.cfg, impl=self.impl,
+                                   remat=self.remat)
+
     def forward(self, params: Tree, batch: Dict) -> torch.Tensor:
         f = self.cfg.family
         if f == "ssm":
@@ -211,6 +276,13 @@ class Model:
         if f == "audio":
             return encdec.encdec_cache_defs(self.cfg, batch, seq)
         return transformer.lm_cache_defs(self.cfg, batch, seq)
+
+    def cache_specs(self, batch: int, seq: int) -> Tree:
+        return param_specs(self.cache_defs(batch, seq),
+                           getattr(torch, self.cfg.compute_dtype))
+
+    def cache_axes(self, batch: int, seq: int) -> Tree:
+        return param_axes(self.cache_defs(batch, seq))
 
     def init_cache(self, batch: int, seq: int) -> Tree:
         return tree_map(
@@ -282,7 +354,16 @@ class Model:
         return out
 
 
-def build_model(name_or_cfg, impl: str = "xla", device=None) -> Model:
+def _stacked_depth(stacked_defs: Tree) -> int:
+    """The leading (stacked) dimension of a stacked ParamDef subtree."""
+    leaf = stacked_defs
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+def build_model(name_or_cfg, impl: str = "xla", device=None,
+                remat: str = "dots") -> Model:
     cfg = name_or_cfg if isinstance(name_or_cfg, ArchConfig) else \
         get_config(name_or_cfg)
-    return Model(cfg, impl=impl, device=device)
+    return Model(cfg, impl=impl, device=device, remat=remat)

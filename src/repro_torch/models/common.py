@@ -15,7 +15,13 @@ Differences from the reference, all forced by running eagerly on one device:
   subtrees that are stacked in the reference (:func:`split_stacked`);
 - ``scan_layers`` is a Python loop over that list;
 - ``shard_batch`` has no counterpart: it is a sharding constraint that is a
-  no-op without a device mesh, and the port runs on one device.
+  no-op without a device mesh, and the port runs on one device;
+- activation checkpointing (:func:`checkpointed`) wraps one layer in
+  ``torch.utils.checkpoint`` where the reference wraps the scan body in
+  ``jax.checkpoint``.
+
+:func:`param_specs` and :func:`param_axes` walk the *stacked* definition
+tree, so their keys and shapes are the reference's.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Tree = Any
 
@@ -68,6 +76,32 @@ def tree_leaves(tree: Tree) -> List:
     out: List = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(like: Tree, leaves: Sequence) -> Tree:
+    """``leaves`` (in :func:`tree_leaves` order) in the structure of
+    ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and dtype, nothing allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def param_specs(defs: Tree, dtype: torch.dtype) -> Tree:
+    """The :class:`TensorSpec` of every ParamDef of a (stacked) tree."""
+    return tree_map(lambda d: TensorSpec(tuple(d.shape), dtype), defs)
+
+
+def param_axes(defs: Tree) -> Tree:
+    """The logical axis names of every ParamDef: a tree whose leaves are
+    tuples (walk it by the defs' structure, not with :func:`tree_map`)."""
+    return tree_map(lambda d: d.axes, defs)
 
 
 def _init_tensor(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
@@ -121,6 +155,14 @@ def split_stacked(params: Tree) -> Tree:
             for k, v in params.items()}
 
 
+def stack_stacked(params: Tree) -> Tree:
+    """The inverse of :func:`split_stacked`: each per-layer list of a
+    :data:`STACKED` subtree stacked into one tree of ``[L, ...]`` tensors
+    (copies), the reference's layout."""
+    return {k: stack_trees(v) if k in STACKED else v
+            for k, v in params.items()}
+
+
 def stack_trees(trees: Sequence[Tree]) -> Tree:
     """A list of per-layer trees of tensors -> one tree of ``[L, ...]``
     (dicts by key, tuples by position)."""
@@ -144,6 +186,42 @@ def scan_layers(body: Callable, carry, xs: Sequence):
     if not ys or ys[0] is None:
         return carry, None
     return carry, stack_trees(ys)
+
+
+# --------------------------------------------------------------------------- #
+# activation checkpointing
+# --------------------------------------------------------------------------- #
+REMATS = ("none", "dots", "full")
+_aten = torch.ops.aten
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the products without a batch dimension -- a projection ``bsd,de`` runs
+    as ``mm`` or as ``bmm`` over one batch -- and recompute the rest
+    (attention scores and the experts' grouped products have batch dims)."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def checkpointed(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation-checkpointing policy ``remat``:
+    ``"none"`` keeps every activation for the backward pass, ``"full"``
+    keeps only ``fn``'s inputs and recomputes the rest, ``"dots"`` also
+    keeps the matrix products without batch dims.  Memory changes, values
+    never do."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+    if remat == "none":
+        return fn
+    kw = {"context_fn": _dots_context} if remat == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 # --------------------------------------------------------------------------- #
@@ -215,3 +293,18 @@ def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
         "up": ParamDef((d_model, d_ff), ("d_model", "d_ff")),
         "down": ParamDef((d_ff, d_model), ("d_ff", "d_model")),
     }
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in float32.  logits [..., V],
+    labels [...] (integer).  The gold logit is read by ``gather`` (the
+    reference's iota-compare select picks the same single element)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)
+    return torch.mean(nll)

@@ -8,6 +8,9 @@ Only the decoder's causal self-attention reaches ``flash_attention`` under
 ``impl="flash"``: the encoder's attention is non-causal and cross attention
 reads other keys, so both take the einsum path, as in the reference.
 
+``encdec_loss`` checkpoints each decoder layer whole under any ``remat``
+but ``"none"`` (the encoder is not checkpointed), as the reference does.
+
 Parameters: ``enc_layers`` and ``dec_layers`` (lists of per-layer dicts).
 Caches keep the reference's layout, ``{"self": {"k", "v": [L,B,S,KV,hd]},
 "cross": {"k", "v": [L,B,T,KV,hd]}}``; decode writes the self-attention
@@ -21,8 +24,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (ParamDef, mlp_defs, rms_norm,
-                                       scan_layers, sinusoidal_position,
+from repro_torch.models.common import (ParamDef, checkpointed,
+                                       cross_entropy_loss, mlp_defs,
+                                       rms_norm, scan_layers, sinusoidal_position,
                                        sinusoidal_positions, split_layers,
                                        stack_defs, swiglu)
 
@@ -105,12 +109,21 @@ def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def encdec_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
-                   impl: str = "xla") -> torch.Tensor:
+                   impl: str = "xla", remat: str = "none") -> torch.Tensor:
     enc_out = _encode(params, batch["frames"], cfg, impl)
     h = _embed(params, batch["tokens"], cfg)
+    layer = checkpointed(
+        lambda c, lp: _dec_layer(c, lp, enc_out, cfg, impl)[0],
+        "full" if remat != "none" else "none")
     for lp in params["dec_layers"]:
-        h, _ = _dec_layer(h, lp, enc_out, cfg, impl)
+        h = layer(h, lp)
     return _logits(params, h, cfg)
+
+
+def encdec_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
+                impl: str = "xla", remat: str = "dots") -> torch.Tensor:
+    logits = encdec_forward(params, batch, cfg, impl=impl, remat=remat)
+    return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 def encdec_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,

@@ -10,6 +10,10 @@ attention to the ``flash_attention`` kernel (and the SSD layers to the
 chunked torch form), ``"pallas"`` sends the SSD scans to the ``ssd_scan``
 kernel (and attention to the einsum path) — never both in one run.
 
+``hybrid_loss`` checkpoints a whole group (its SSD layers and its shared
+block) under any ``remat`` but ``"none"``, as the reference does (which
+turns every other policy into ``"full"``).
+
 Parameters: ``ssm_layers`` (L per-layer dicts) and ``shared`` (one dict per
 shared block).  Caches keep the reference's layout, ``{"ssm_layers":
 {"ssm": [L,B,H,P,N], "conv": [L,B,K-1,C]}, "attn": {"k", "v":
@@ -24,8 +28,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamDef, mlp_defs, rms_norm,
-                                       split_layers, stack_defs,
+from repro_torch.models.common import (ParamDef, checkpointed,
+                                       cross_entropy_loss, mlp_defs,
+                                       rms_norm, split_layers, stack_defs,
                                        stack_trees, swiglu)
 
 Tree = Any
@@ -88,13 +93,24 @@ def _shared_fwd(sp: Tree, h: torch.Tensor, cfg: ArchConfig,
 
 
 def hybrid_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
-                   impl: str = "xla") -> torch.Tensor:
-    h = _embed(params, batch["tokens"], cfg)
-    for layers, sp in _groups(params, cfg):
+                   impl: str = "xla", remat: str = "none") -> torch.Tensor:
+    def group(h, layers, sp):
         for lp in layers:
             h = h + ssm_mod.ssm_forward(lp, h, cfg, impl=impl)
-        h, _ = _shared_fwd(sp, h, cfg, impl)
+        return _shared_fwd(sp, h, cfg, impl)[0]
+
+    group = checkpointed(group, remat)
+    h = _embed(params, batch["tokens"], cfg)
+    for layers, sp in _groups(params, cfg):
+        h = group(h, layers, sp)
     return _logits(params, h, cfg)
+
+
+def hybrid_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
+                impl: str = "xla", remat: str = "dots") -> torch.Tensor:
+    logits = hybrid_forward(params, batch, cfg, impl=impl,
+                            remat="full" if remat != "none" else "none")
+    return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 def hybrid_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,

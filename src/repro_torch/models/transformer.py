@@ -7,10 +7,14 @@ reference's two groups, ``dense_layers`` (SwiGLU) then ``layers`` (MoE), in
 parameters and caches alike; caches keep the reference's stacked layout,
 ``{"layers": {"k", "v": [L, B, S, KV, hd]}}`` for GQA and ``{"c_kv": [L, B,
 S, r], "k_rope": [L, B, S, rope]}`` for MLA.  A VLM prepends precomputed
-patch embeddings (``batch["patch_embeds"]``) to the token embeddings.  The
-multi-token-prediction subtree ``mtp`` (DeepSeek-V3) is defined and
-converted here; its only reader is the training loss, which is not ported
-yet (ROADMAP Queue A, training).
+patch embeddings (``batch["patch_embeds"]``) to the token embeddings.
+
+``lm_loss`` is the training objective: next-token cross entropy over the
+token positions (a VLM's patch prefix is cut before the logits), plus the
+MoE load-balancing loss of every MoE layer, plus, where ``cfg.mtp``
+(DeepSeek-V3), the multi-token-prediction head over the ``mtp`` subtree
+(one more block predicts token t + 2, weighted 0.3, its aux loss added).
+Each layer runs under ``common.checkpointed(..., remat)``.
 """
 from __future__ import annotations
 
@@ -21,9 +25,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (ParamDef, mlp_defs, rms_norm,
-                                       scan_layers, split_layers, stack_defs,
-                                       swiglu)
+from repro_torch.models.common import (ParamDef, checkpointed,
+                                       cross_entropy_loss, mlp_defs,
+                                       rms_norm, scan_layers, split_layers,
+                                       stack_defs, swiglu)
 
 Tree = Any
 
@@ -87,25 +92,41 @@ def lm_defs(cfg: ArchConfig) -> Dict[str, Tree]:
 # --------------------------------------------------------------------------- #
 # layer bodies
 # --------------------------------------------------------------------------- #
-def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig):
+    """``h`` + the layer's MLP or MoE; returns (output, MoE aux loss -- 0.0
+    for a dense layer)."""
     x = rms_norm(h, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        f, _ = moe_mod.moe_forward(lp["moe"], x, cfg)
+        f, aux = moe_mod.moe_forward(lp["moe"], x, cfg)
     else:
         f = swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"])
-    return h + f
+        aux = 0.0
+    return h + f, aux
 
 
-def _layer_fwd(h: torch.Tensor, lp: Dict, cfg: ArchConfig,
-               impl: str) -> Tuple[torch.Tensor, Dict]:
-    """One layer; returns (output, the layer's cache contents).  MLA always
-    takes the einsum path, as in the reference."""
+def _block(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
+    """One layer; returns (output, the layer's cache contents, aux loss).
+    MLA always takes the einsum path, as in the reference."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, kv = attn.mla_forward(lp["attn"], x, cfg)
     else:
         a, kv = attn.gqa_forward(lp["attn"], x, cfg, impl=impl)
-    return _ffn(h + a, lp, cfg), kv
+    out, aux = _ffn(h + a, lp, cfg)
+    return out, kv, aux
+
+
+def _layer_fwd(h: torch.Tensor, lp: Dict, cfg: ArchConfig,
+               impl: str) -> Tuple[torch.Tensor, Dict]:
+    """One layer; returns (output, the layer's cache contents)."""
+    out, kv, _ = _block(h, lp, cfg, impl)
+    return out, kv
+
+
+def _layer_train(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
+    """One layer for the loss; returns (output, aux loss)."""
+    out, _, aux = _block(h, lp, cfg, impl)
+    return out, aux
 
 
 def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -142,6 +163,38 @@ def lm_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
     return _logits(params, h, cfg)
 
 
+def lm_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
+            impl: str = "xla", remat: str = "dots") -> torch.Tensor:
+    """Next-token CE (+ MoE aux + the MTP head where configured)."""
+    h = _embed_inputs(params, batch, cfg)
+    layer = checkpointed(
+        lambda c, lp: _layer_train(c, lp, cfg, impl), remat)
+    aux = 0.0
+    for name, _, _ in _groups(cfg):
+        for lp in params[name]:
+            h, a = layer(h, lp)
+            aux = aux + a
+    if cfg.vlm is not None and "patch_embeds" in batch:
+        h = h[:, batch["patch_embeds"].shape[1]:]
+    tokens = batch["tokens"]
+    loss = cross_entropy_loss(_logits(params, h, cfg)[:, :-1], tokens[:, 1:])
+
+    if cfg.mtp:
+        # DeepSeek-V3 multi-token prediction: one extra block predicts t+2
+        mp = params["mtp"]
+        emb_next = _embed_tokens(params, tokens, cfg)
+        h_in = torch.cat([rms_norm(h[:, :-1], mp["ln_h"], cfg.norm_eps),
+                          rms_norm(emb_next[:, 1:], mp["ln_e"], cfg.norm_eps)],
+                         dim=-1)
+        h_mtp = torch.einsum("bsd,dk->bsk", h_in, mp["proj"])
+        h_mtp, aux_mtp = _layer_train(h_mtp, mp["block"], cfg, impl)
+        logits_mtp = _logits(params, h_mtp, cfg)
+        loss = loss + 0.3 * cross_entropy_loss(logits_mtp[:, :-1],
+                                               tokens[:, 2:])
+        aux = aux + aux_mtp
+    return loss + aux
+
+
 def lm_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,
                impl: str = "xla") -> Tuple[torch.Tensor, Tree]:
     """Process the full prompt; return (last-position logits, caches)."""
@@ -159,7 +212,7 @@ def _decode_layer(h, lp, cache, pos: int, cfg: ArchConfig):
         a, _ = attn.mla_decode(lp["attn"], x, cache, pos, cfg)
     else:
         a, _ = attn.gqa_decode(lp["attn"], x, cache, pos, cfg)
-    return _ffn(h + a, lp, cfg)
+    return _ffn(h + a, lp, cfg)[0]
 
 
 def lm_decode_step(params: Tree, cache: Tree, batch: Dict, cfg: ArchConfig

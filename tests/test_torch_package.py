@@ -43,7 +43,13 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
             "repro_torch.exp.runner", "repro_torch.eval.policies",
             "repro_torch.eval.sweep", "repro_torch.eval.report",
             "repro_torch.eval.cli", "repro_torch.obs.cli",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.launch.mesh", "repro_torch.train.loop",
+            "repro_torch.train.optimizer", "repro_torch.data.pipeline",
+            "repro_torch.distributed.checkpoint",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.failure",
+            "repro_torch.distributed.sharding"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -113,6 +119,14 @@ else:
     "__import__('repro_torch.eval', fromlist=['eval']).run_sweep("
     "__import__('repro_torch.eval', fromlist=['eval']).SweepSpec("
     "engine='torch', n_ai_requests=20))",
+    "__import__('repro_torch.train.loop', fromlist=['loop']).train("
+    "__import__('repro_torch.models.api', fromlist=['api']).build_model("
+    "__import__('repro_torch.configs', fromlist=['configs']).smoke_config("
+    "'qwen2-0.5b'), device='cpu'), "
+    "__import__('repro_torch.data', fromlist=['data']).DataPipeline("
+    "vocab_size=256, seq_len=16, global_batch=2), "
+    "__import__('repro_torch.train.loop', fromlist=['loop']).TrainConfig("
+    "steps=1))",
 ))
 def test_default_entry_points_need_cuda_and_say_so(call):
     """No silent CPU run: without a card the device engines raise."""
@@ -128,11 +142,13 @@ def test_default_entry_points_need_cuda_and_say_so(call):
     ["repro_torch.eval", "--spec", "experiments/paper_table3.toml",
      "--requests", "20", "--workers", "1"],
     ["repro_torch.launch.serve", "--requests", "20", "--no-critic"],
+    ["repro_torch.launch.train", "--preset", "smoke", "--steps", "1"],
 ))
 def test_default_command_lines_need_cuda_and_say_so(argv, tmp_path):
     """``python -m repro_torch.eval`` with no ``--engine`` (the spec's
-    ``cuda``) and the serving launcher raise naming CUDA, write no report
-    and never fall back to the host."""
+    ``cuda``), the serving launcher and the training launcher (no
+    ``--device``) raise naming CUDA, write no report and never fall back to
+    the host."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults run on it")
     out = tmp_path / "report.json"
