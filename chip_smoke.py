@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Nine phases, one JSON line each (phases 2 and 3 two, phase 7 five); any
-failure ends the run with a non-zero exit code:
+Eleven phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
+8 four, phase 9 three); any failure ends the run with a non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
   2. build             nvcc-compile every kernel from src/repro_torch/kernels/csrc,
@@ -44,7 +44,7 @@ failure ends the run with a non-zero exit code:
   4c. eval             the experiment harness: the critic of phase haf saved
                        into a fresh artifact store ($REPRO_ARTIFACTS), then
                        experiments/paper_table3.toml, unchanged, through
-                       python -m repro_torch.eval (700 requests a replica,
+                       python -m repro_torch.eval (400 requests a replica,
                        seeds 0..7, two spawn workers) on the default engine
                        (cuda: six run_batch groups of B = 8) and with
                        --engine numpy, into fresh reports: rows equal,
@@ -100,6 +100,27 @@ failure ends the run with a non-zero exit code:
                        mamba2 and deepseek-v3 (MTP gradients non-zero), and
                        one AdamW step card against host; and impl="flash"
                        refusing to be differentiated
+  8. mesh              four spawned ranks share the card as a 2x2 (data x
+                       model) mesh over the cpu:gloo,cuda:hoststaged backend
+                       (gloo's CUDA functional collectives crash in torch
+                       2.11): qwen2-0.5b at full width, 2 layers, float32,
+                       5 steps against one rank (losses within 1e-5, the
+                       parameters within 1e-4 of the tree's largest
+                       magnitude); qwen2-0.5b full in bf16, 8 steps with
+                       checkpoints every 4 and a failure at step 5
+                       (restarts == [5], the loss falls, the final checkpoint
+                       restored in one process bit for bit; each rank's share
+                       of the parameter and moment bytes, ms a step, peak
+                       memory a rank); the impl="flash" prefill of 4 x 512
+                       tokens in float32 on the mesh (24 flash launches a
+                       rank, logits within 1e-4 of the one-card prefill)
+  9. dryrun            qwen2-0.5b at phase train's shape traced by
+                       repro_torch.launch.dryrun on a 1x1 fake mesh: its
+                       counted FLOPs and argument bytes equal to the same
+                       count over the real step on the card, the bound
+                       max(FLOPs / 989.4 T, bytes / 3.35 T) against the
+                       step's ms; then python -m repro_torch.launch.dryrun on
+                       qwen2-0.5b and mamba2-130m on the 16x16 mesh
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
@@ -109,19 +130,20 @@ CUDA-core design; ssd_scan in bf16, its three-launch tensor-core design, held
 both to the sequential recurrence and to ssd_scan_chunked_ref with the
 kernel's rounding points, and in float32, its CUDA-core design).  Then a line
 {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
-launches on its path, error, time, plain-version time, roofline bound and the
-bound's share of the time, library time and the kernel's ratio to it), the
+launches on its path — flash's with the mesh prefill's four ranks —, error,
+time, plain-version time, roofline bound and the bound's share of the time,
+library time and the kernel's ratio to it), the
 card's name and power limit as nvidia-smi prints them, and the last line
 {"ok": true, "device": {...}}.
 
 With no options the fleet is full size (S = 1440, B = 32) and each replica's
-request stream is half the reference bench's, which keeps the run to a few
-minutes; ``--requests 4960`` runs the whole stream.  Phase haf runs 700 of
-paper_table3's 5000 requests a replica (``--haf-requests``), a cut harvest
-(``--harvest-bulk``, ``--harvest-probe``) and the reference's 2000 training
-epochs (``--critic-epochs``); phase eval runs paper_table3 at 700 requests a
-replica on seeds 0..7.  The other options shrink
-the run for a rehearsal; the served models always run at their configs' full
+request stream is an eighth of the reference bench's, which keeps the
+script's run time well inside its limit on a slow host; ``--requests 4960``
+runs the whole stream.  Phase haf runs 700 of paper_table3's 5000 requests a
+replica (``--haf-requests``), a cut harvest (``--harvest-bulk``,
+``--harvest-probe``) and the reference's 2000 training epochs
+(``--critic-epochs``); phase eval runs paper_table3 at 400 requests a
+replica on seeds 0..7.  The other options shrink the run for a rehearsal; the served models always run at their configs' full
 width, and at full depth but where a model does not fit one card (phase
 serve's SERVE says which depths are cut).
 """
@@ -780,7 +802,9 @@ def phase_alloc_kernel(args):
 # then the rest of the shapes phase serve gives the kernel: whisper's decoder
 # (16 heads of 64, GQA 1:1) at 512 and 300, llava's ragged prompt (576 +
 # 300), and the 511-token float32 prefill of each model's prefill + decode
-# == forward check.  The SSD shapes end with zamba2's geometry (80 heads of
+# == forward check, and last the mesh prefill's shard on each rank of phase
+# mesh's 2×2 (batch over data, qwen2's 14 query and 2 KV heads over model).
+# The SSD shapes end with zamba2's geometry (80 heads of
 # 64, d_state 64), then the 511-token prefills (the wrapper halves the chunk
 # to 1) of mamba2 and zamba2
 FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
@@ -792,7 +816,8 @@ FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
                 (4, 512, 16, 16, 64), (4, 300, 16, 16, 64),
                 (4, 876, 32, 8, 128),
                 (4, 511, 14, 2, 64), (4, 511, 32, 32, 80),
-                (4, 511, 16, 16, 64), (4, 1087, 32, 8, 128)]
+                (4, 511, 16, 16, 64), (4, 1087, 32, 8, 128),
+                (SERVE_B // 2, SERVE_S, 14 // 2, 2 // 2, 64)]
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
               (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300),
@@ -1407,7 +1432,7 @@ EVAL_SEEDS, N_EVAL_SEEDS, EVAL_BATCH, EVAL_WORKERS = "0..7", 8, 8, 2
 # n_ai_requests a replica of paper_table3 (its file says 5000), of the
 # trace replay (a prefix of trace_sweep's 2000 rows) and of the serving
 # launcher's run: cut for run time, each run's shapes left whole
-EVAL_REQUESTS, TRACE_REQUESTS, SERVE_REQUESTS = 700, 500, 300
+EVAL_REQUESTS, TRACE_REQUESTS, SERVE_REQUESTS = 400, 250, 300
 # row columns that say how and how fast a row ran, not what it computed
 HOW = ("wall_s", "engine_wall_s", "events_per_sec", "engine", "batch", "b",
        "profile", "trace_counts", "trace_path")
@@ -2459,15 +2484,512 @@ def phase_train():
          kernel_guard=guard, kernel_launches=counts)
 
 
+# --------------------------------------------------------------------------- #
+# phase mesh: four ranks share the card as a 2×2 (data × model) mesh
+# --------------------------------------------------------------------------- #
+MESH_WORLD, MESH_DIMS = 4, (2, 2)
+# NCCL takes one rank a card, and gloo's CUDA functional collectives crash in
+# torch 2.11 (ROADMAP F5): the ranks sharing the card stage collectives
+# through host memory (repro_torch.distributed.hoststaged)
+MESH_BACKEND = "cpu:gloo,cuda:hoststaged"
+MESH_TIMEOUT_S = 600
+# parity: qwen2-0.5b at full width, 2 layers, float32, 5 steps, against one
+# rank on the card; the first step's gradients (before clipping and AdamW)
+# leaf by leaf, each of its own largest magnitude; the loss of every step
+# relative; the parameters after 5 steps of the parameters' largest
+# magnitude.  Each leaf's worst parameter error of its own scale is
+# reported, with the first step's gradients at that element: AdamW steps an
+# element by its gradient over that gradient's RMS, so where an element's
+# gradient is small beside its leaf's largest, the rounding of a sum taken
+# in another order becomes a large share of its step (ROADMAP P10)
+MESH_PARITY_LAYERS, MESH_PARITY_STEPS, MESH_PARITY_S, MESH_PARITY_B = \
+    2, 5, 256, 4
+MESH_LOSS_TOL, MESH_GRAD_TOL, MESH_PARAM_TOL = 1e-5, 1e-5, 1e-4
+# the run: phase train's shape at full depth, 8 steps, a checkpoint every 4,
+# a failure at step 5
+MESH_STEPS, MESH_EVERY, MESH_FAIL = 8, 4, 5
+MESH_SERVE_TOL = 1e-4
+
+
+def mesh_parity_config():
+    cfg = preset_config("qwen2-0.5b", "full")
+    return dataclasses.replace(cfg, num_layers=MESH_PARITY_LAYERS,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def mesh_parity_start(ckpt_dir: str) -> None:
+    """The parity run's tempered weights as the step-0 checkpoint."""
+    cfg = mesh_parity_config()
+    model = Model(cfg, remat="dots")
+    params = model.init(seeded(SEED))
+    temper(params)
+    ckpt.save_checkpoint(ckpt_dir, 0, params, opt_state=adamw_init(params),
+                         extra={"pipeline": {"step": 0}})
+
+
+def mesh_parity_run(mesh, ckpt_dir: str):
+    """``train`` of the parity config from the step-0 checkpoint in
+    ``ckpt_dir`` on ``mesh`` (None: one rank); returns the history and the
+    final parameters gathered whole."""
+    from repro_torch.distributed.placement import gather_full
+    cfg = mesh_parity_config()
+    model = Model(cfg, remat="dots")
+    pipe = DataPipeline(vocab_size=cfg.vocab_size, seq_len=MESH_PARITY_S,
+                        global_batch=MESH_PARITY_B)
+    tc = TrainConfig(steps=MESH_PARITY_STEPS, checkpoint_dir=ckpt_dir,
+                     checkpoint_every=10 ** 6, **TRAIN_LR)
+    out = {}
+    hist = train(model, pipe, tc, mesh=mesh, verbose=False, final_state=out)
+    return hist, gather_full(out["params"])
+
+
+def mesh_parity_grads(mesh, ckpt_dir: str):
+    """The parity run's first-step gradients (the step-0 checkpoint in
+    ``ckpt_dir``, the first batch; before clipping and AdamW) on ``mesh``
+    (None: one rank), redistributed to their parameters' placements and
+    gathered whole, as host tensors."""
+    from repro_torch.distributed import placement
+    from repro_torch.launch.mesh import make_device_mesh
+    cfg = mesh_parity_config()
+    model = Model(cfg, remat="dots")
+    state, _, _ = ckpt.restore_checkpoint(
+        ckpt_dir, {"params": model.init(seeded(SEED))}, step=0)
+    params = state["params"]
+    batch = batch_to_device(DataPipeline(
+        vocab_size=cfg.vocab_size, seq_len=MESH_PARITY_S,
+        global_batch=MESH_PARITY_B).next_batch(), DEV)
+    if mesh is not None:
+        dmesh = make_device_mesh(mesh, "cuda")
+        params = placement.place_params(params, model, dmesh)
+        batch = placement.place_batch(batch, dmesh)
+    _, grads = value_and_grad(model, params, batch)
+    grads = placement.gather_full(placement.redistribute_like(grads, params))
+    return [g.detach().cpu() for g in tree_leaves(grads)]
+
+
+def leaf_names(tree, path: str = "") -> list:
+    """The leaves' paths, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{path}[{i}]")]
+    return [path or "/"]
+
+
+def mesh_serve_config():
+    return dataclasses.replace(get_config("qwen2-0.5b"),
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def mesh_serve_inputs(model):
+    params = model.init(seeded(SEED))
+    temper(params)
+    cfg = model.cfg
+    return params, {"tokens": prompts(SEED, SERVE_B, SERVE_S,
+                                      cfg.vocab_size)}
+
+
+def local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+               * t.element_size() for t in tree_leaves(tree))
+
+
+def mesh_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase mesh: the parity run, the full-depth run with a
+    failure, the flash prefill; rank 0 writes the report."""
+    import datetime
+    import faulthandler
+    from repro_torch.distributed import placement
+    faulthandler.enable()
+    from repro_torch.launch.mesh import MeshShape, make_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import repro_torch.distributed.hoststaged  # noqa: F401 — the backend
+    torch.distributed.init_process_group(
+        MESH_BACKEND, init_method=f"tcp://localhost:{port}",
+        rank=rank,
+        world_size=MESH_WORLD,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        _build.load()
+        shape = MeshShape(("data", "model"), MESH_DIMS)
+        report = {"rank": rank}
+        # 1. parity against one rank: the first step's gradients, the run
+        grads = mesh_parity_grads(shape, os.path.join(out_dir, "parity_mesh"))
+        if rank == 0:
+            torch.save(grads, os.path.join(out_dir, "parity_grads.pt"))
+        del grads
+        torch.cuda.empty_cache()
+        hist, params = mesh_parity_run(shape,
+                                       os.path.join(out_dir, "parity_mesh"))
+        report["parity"] = {"loss": hist["loss"],
+                            "grad_norm": hist["grad_norm"]}
+        if rank == 0:
+            torch.save([t.cpu() for t in tree_leaves(params)],
+                       os.path.join(out_dir, "parity_params.pt"))
+        del params
+        torch.cuda.empty_cache()
+
+        # 2. full depth in bf16 with a failure at MESH_FAIL
+        ckpt_dir = os.path.join(out_dir, "ckpt")
+        cfg = preset_config("qwen2-0.5b", "full")
+        model = Model(cfg, remat="dots")
+        pipe = make_pipeline(cfg, TRAIN_S, TRAIN_B)
+        tc = TrainConfig(steps=MESH_STEPS, checkpoint_every=MESH_EVERY,
+                         checkpoint_dir=ckpt_dir, **TRAIN_LR)
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = train(model, pipe, tc, mesh=shape, verbose=False,
+                     injector=FailureInjector([MESH_FAIL]), final_state=out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        state = [out["params"], out["opt"].m, out["opt"].v]
+        whole = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+        full = placement.gather_full(out["params"])
+        restored_equal = None
+        if rank == 0:
+            # the final checkpoint restored in one process, plain tensors
+            template = {"params": model.init(seeded(SEED + 1))}
+            got, step, _ = ckpt.restore_checkpoint(ckpt_dir, template)
+            restored_equal = step == MESH_STEPS and all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                    tree_leaves(got["params"]), tree_leaves(full)))
+            del got, template
+        report["run"] = {
+            "loss": hist["loss"], "grad_norm": hist["grad_norm"],
+            "restarts": hist["restarts"], "steps_run": len(hist["loss"]),
+            "wall_s": wall, "ms_a_step_incl_restart": wall * 1e3
+            / len(hist["loss"]),
+            "param_moment_bytes_rank": local_bytes(state),
+            "param_moment_bytes_whole": whole,
+            "peak_memory_bytes_rank": torch.cuda.max_memory_allocated(),
+            "restored_bit_equal": restored_equal}
+        # ms a step: the median over the run's steps (a cold first step and
+        # the one after the restore among them)
+        walls = [t * 1e3 for t in out["step_s"]]
+        report["run"]["step_ms_median"] = float(np.median(walls))
+        report["run"]["step_ms_all"] = walls
+        del out, state, full, model
+        torch.cuda.empty_cache()
+
+        # 3. the flash prefill on the mesh, float32
+        model = build_model(mesh_serve_config(), impl="flash")
+        params, batch = mesh_serve_inputs(model)
+        mesh = make_device_mesh(shape, "cuda")
+        pp = placement.place_params(params, model, mesh)
+        bb = placement.place_batch(batch, mesh)
+        del params
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = model.prefill(pp, bb)
+        launches = ops.launch_counts()["flash_attention"]
+        logits = placement.gather_full(logits)
+        if rank == 0:
+            torch.save(logits.cpu(), os.path.join(out_dir, "logits.pt"))
+        report["serve"] = {"flash_launches": launches}
+        reports = [None] * MESH_WORLD
+        torch.distributed.all_gather_object(reports, report)
+        if rank == 0:
+            with open(os.path.join(out_dir, "report.json"), "w") as f:
+                json.dump(reports, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh():
+    """Four spawned ranks share the card as a 2×2 mesh (gloo: NCCL takes
+    one rank a card): training parity against one rank, qwen2-0.5b at full
+    depth with a failure and a cross restore, and the flash prefill."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        # one rank on the card: the parity run and the prefill
+        mesh_parity_start(os.path.join(tmp, "parity_one"))
+        shutil.copytree(os.path.join(tmp, "parity_one"),
+                        os.path.join(tmp, "parity_mesh"))
+        grads1 = mesh_parity_grads(None, os.path.join(tmp, "parity_one"))
+        torch.cuda.empty_cache()
+        hist1, params1 = mesh_parity_run(None,
+                                         os.path.join(tmp, "parity_one"))
+        names = leaf_names(params1)
+        params1 = [t.detach().cpu() for t in tree_leaves(params1)]
+        torch.cuda.empty_cache()
+        model = build_model(mesh_serve_config(), impl="flash")
+        params, batch = mesh_serve_inputs(model)
+        with torch.no_grad():
+            logits1 = model.prefill(params, batch)[0].cpu()
+        del params, model
+        torch.cuda.empty_cache()
+        # the run starts from tempered weights, as phase train's does
+        cfg = preset_config("qwen2-0.5b", "full")
+        model = Model(cfg, remat="dots")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        params = model.init(seeded(SEED))
+        temper(params)
+        ckpt.save_checkpoint(ckpt_dir, 0, params,
+                             opt_state=adamw_init(params),
+                             extra={"pipeline": make_pipeline(
+                                 cfg, TRAIN_S, TRAIN_B).state_dict()})
+        del params, model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_worker, args=(free_port(), tmp),
+                           nprocs=MESH_WORLD, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "report.json")) as f:
+            reports = json.load(f)
+        r0 = reports[0]
+
+        # 1. parity
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(r0["parity"]["loss"], hist1["loss"]))
+        grads = torch.load(os.path.join(tmp, "parity_grads.pt"))
+        grad_errs = [leaf_rel(g, w) for g, w in zip(grads, grads1)]
+        worst_grad = int(np.argmax(grad_errs))
+        got = torch.load(os.path.join(tmp, "parity_params.pt"))
+        scale = max(float(w.abs().max()) for w in params1)
+        tree_err = max(float((g.cpu() - w).abs().max()) for g, w in
+                       zip(got, params1)) / scale
+        leaf_errs = [leaf_rel(g, w) for g, w in zip(got, params1)]
+        worst = int(np.argmax(leaf_errs))
+        # the worst leaf's worst element: its first-step gradients, that
+        # gradient against the leaf's largest, and their difference against
+        # the leaf's gradient scale and against the element's own gradient
+        diff = (got[worst].double() - params1[worst].double()).abs()
+        at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+        g_one, g_mesh = float(grads1[worst][at]), float(grads[worst][at])
+        g_scale = float(grads1[worst].abs().max())
+        element = {"leaf": names[worst], "index": [int(i) for i in at],
+                   "param_abs_diff": float(diff[at]),
+                   "param_own_scale": float(params1[worst].abs().max()),
+                   "grad1_one_rank": g_one, "grad1_mesh": g_mesh,
+                   "grad1_of_leaf_grad_scale": abs(g_one) / g_scale,
+                   "grad1_diff_of_leaf_grad_scale":
+                       abs(g_mesh - g_one) / g_scale,
+                   "grad1_diff_of_own_grad": abs(g_mesh - g_one)
+                       / max(abs(g_one), 1e-30)}
+        emit("mesh_parity", model="qwen2-0.5b", layers=MESH_PARITY_LAYERS,
+             dtype="float32", mesh=list(MESH_DIMS), ranks=MESH_WORLD,
+             backend=MESH_BACKEND, steps=MESH_PARITY_STEPS, seq=MESH_PARITY_S,
+             global_batch=MESH_PARITY_B, loss_mesh=r0["parity"]["loss"],
+             loss_one_rank=hist1["loss"],
+             grad_norm_mesh=r0["parity"]["grad_norm"],
+             grad_norm_one_rank=hist1["grad_norm"],
+             grad1_worst_leaf_err_of_own_scale=grad_errs[worst_grad],
+             grad1_worst_leaf=names[worst_grad],
+             loss_rel_err=loss_err, param_err_of_tree_scale=tree_err,
+             worst_leaf_err_of_own_scale=leaf_errs[worst],
+             worst_leaf_index=worst, worst_leaf_element=element,
+             tolerance={"grad1_of_own_scale": MESH_GRAD_TOL,
+                        "loss_rel": MESH_LOSS_TOL,
+                        "param_of_tree_scale": MESH_PARAM_TOL})
+        if len(grads) != len(grads1) or any(
+                g.shape != w.shape for g, w in zip(grads, grads1)) or \
+                grad_errs[worst_grad] > MESH_GRAD_TOL:
+            raise AssertionError(f"mesh parity: first-step gradient of "
+                                 f"{names[worst_grad]} "
+                                 f"{grad_errs[worst_grad]:.3g} of its scale "
+                                 f"(bar {MESH_GRAD_TOL})")
+        if len(r0["parity"]["loss"]) != MESH_PARITY_STEPS or \
+                loss_err > MESH_LOSS_TOL or tree_err > MESH_PARAM_TOL:
+            raise AssertionError(f"mesh parity: loss {loss_err:.3g} (bar "
+                                 f"{MESH_LOSS_TOL}), parameters {tree_err:.3g}"
+                                 f" (bar {MESH_PARAM_TOL})")
+
+        # 2. the run
+        runs = [r["run"] for r in reports]
+        run = runs[0]
+        emit("mesh_train", model="qwen2-0.5b", layers=24, dtype="bfloat16",
+             mesh=list(MESH_DIMS), ranks=MESH_WORLD, backend=MESH_BACKEND,
+             seq=TRAIN_S, global_batch=TRAIN_B, steps=MESH_STEPS,
+             checkpoint_every=MESH_EVERY, fail_at=MESH_FAIL, **TRAIN_LR,
+             loss=run["loss"], grad_norm=run["grad_norm"],
+             restarts=run["restarts"], steps_run=run["steps_run"],
+             restored_bit_equal=run["restored_bit_equal"],
+             step_ms_median=[r["step_ms_median"] for r in runs],
+             step_ms_all_rank0=run["step_ms_all"],
+             wall_s=[r["wall_s"] for r in runs],
+             param_moment_bytes_rank=[r["param_moment_bytes_rank"]
+                                      for r in runs],
+             param_moment_bytes_whole=run["param_moment_bytes_whole"],
+             rank_share=[r["param_moment_bytes_rank"]
+                         / r["param_moment_bytes_whole"] for r in runs],
+             peak_memory_bytes_rank=[r["peak_memory_bytes_rank"]
+                                     for r in runs],
+             replicated_leaves=len(spec_report_of_mesh()))
+        if run["restarts"] != [MESH_FAIL]:
+            raise AssertionError(f"mesh run: restarts {run['restarts']}, "
+                                 f"expected [{MESH_FAIL}]")
+        if not (run["loss"][-1] < run["loss"][0]) or \
+                not np.isfinite(run["loss"]).all():
+            raise AssertionError(f"mesh run: loss {run['loss'][0]} -> "
+                                 f"{run['loss'][-1]}")
+        if run["restored_bit_equal"] is not True:
+            raise AssertionError("mesh run: the final checkpoint restored in "
+                                 "one process differs from the gathered "
+                                 "parameters")
+
+        # 3. the flash prefill; its shard on each rank is among the shapes
+        # phase model_kernels holds against attention_ref
+        shard = (SERVE_B // MESH_DIMS[0], SERVE_S, 14 // MESH_DIMS[1],
+                 2 // MESH_DIMS[1], 64)
+        if shard not in FLASH_SHAPES:
+            raise AssertionError(f"mesh prefill: the shard {shard} is not "
+                                 f"in FLASH_SHAPES")
+        logits = torch.load(os.path.join(tmp, "logits.pt"))
+        serve_err = max_rel(logits, logits1)
+        launches = [r["serve"]["flash_launches"] for r in reports]
+        want = get_config("qwen2-0.5b").num_layers
+        emit("mesh_serve", model="qwen2-0.5b", impl="flash", dtype="float32",
+             batch=SERVE_B, seq=SERVE_S, mesh=list(MESH_DIMS),
+             flash_launches_per_rank=launches, logits_rel_err=serve_err,
+             tolerance=MESH_SERVE_TOL)
+        if launches != [want] * MESH_WORLD:
+            raise AssertionError(f"mesh prefill: flash launches {launches}, "
+                                 f"expected {want} a rank")
+        if serve_err > MESH_SERVE_TOL:
+            raise AssertionError(f"mesh prefill: logits {serve_err:.3g} from "
+                                 f"the one-card prefill (bar "
+                                 f"{MESH_SERVE_TOL})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("mesh_summary", seconds=time.perf_counter() - t_phase,
+         spawn_s=spawn_s)
+    return sum(launches)
+
+
+def spec_report_of_mesh():
+    from repro_torch.distributed.sharding import spec_report
+    from repro_torch.launch.mesh import MeshShape
+    model = Model(preset_config("qwen2-0.5b", "full"), device="meta")
+    return spec_report(model, MeshShape(("data", "model"), MESH_DIMS))
+
+
+# --------------------------------------------------------------------------- #
+# phase dryrun: the dry-run's count against the card, then the sweep
+# --------------------------------------------------------------------------- #
+DRYRUN_SWEEP = ("--mesh", "single", "--arch", "qwen2-0.5b,mamba2-130m")
+DRYRUN_TIMEOUT_S = 300
+
+
+def phase_dryrun():
+    """The yardstick: qwen2-0.5b at phase train's shape traced on a 1×1
+    fake mesh and counted over the real step on the card (FLOPs and
+    argument bytes equal); then the dry-run's CLI on a subset of cells."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import MeshShape
+    t_phase = time.perf_counter()
+    cell = ShapeCell("train_phase", TRAIN_S, TRAIN_B, "train")
+    rec = dryrun.lower_cell("qwen2-0.5b", cell,
+                            MeshShape(("data", "model"), (1, 1)))
+    cfg = preset_config("qwen2-0.5b", "full")
+    model = Model(cfg, remat="dots")
+    params = model.init(seeded(SEED))
+    temper(params)
+    opt = adamw_init(params)
+    batch = {"tokens": prompts(SEED, TRAIN_B, TRAIN_S,
+                               cfg.vocab_size).to(torch.int32)}
+    card_args = local_bytes([params, opt.m, opt.v, opt.step, batch])
+    step = make_train_step(model, TrainConfig(steps=1000), compress=False)
+    with hlo_analysis.OpCounter() as counter:
+        step(params, opt, batch, None)
+    walls = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, m = step(params, opt, batch, None)
+        float(m["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(walls))
+    roof = rec["roofline"]
+    bound_s = max(roof["flops"] / hlo_analysis.PEAK_FLOPS,
+                  roof["hbm_bytes"] / hlo_analysis.HBM_BW)
+    emit("dryrun_yardstick", model="qwen2-0.5b", layers=cfg.num_layers,
+         dtype=cfg.param_dtype, seq=TRAIN_S, global_batch=TRAIN_B,
+         remat="dots", trace_s=rec["compile_s"],
+         model_flops=roof["model_flops"], counted_flops_trace=roof["flops"],
+         counted_flops_card=counter.flops, counted_bytes_trace=roof[
+             "hbm_bytes"], counted_bytes_card=counter.bytes,
+         argument_bytes_trace=rec["memory"]["argument_size_in_bytes"],
+         argument_bytes_card=card_args,
+         bound_ms=bound_s * 1e3, bound_by="operations" if roof["flops"]
+         / hlo_analysis.PEAK_FLOPS >= roof["hbm_bytes"]
+         / hlo_analysis.HBM_BW else "bytes", step_ms_median=step_ms,
+         step_ms_all=walls, bound_share_of_step=bound_s * 1e3 / step_ms,
+         model_flops_share_of_step=roof["model_flops"]
+         / hlo_analysis.PEAK_FLOPS * 1e3 / step_ms)
+    if roof["flops"] != counter.flops:
+        raise AssertionError(f"dry-run FLOPs {roof['flops']} != the card's "
+                             f"{counter.flops}")
+    if rec["memory"]["argument_size_in_bytes"] != card_args:
+        raise AssertionError(f"dry-run argument bytes "
+                             f"{rec['memory']['argument_size_in_bytes']} != "
+                             f"the card's {card_args}")
+    del params, opt, model
+    torch.cuda.empty_cache()
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_SWEEP,
+             "--out", out], env=env, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"dry-run sweep failed:\n{proc.stderr[-3000:]}")
+        sweep_s = time.perf_counter() - t0
+        cells = []
+        for f in sorted(pathlib.Path(out).glob("dryrun_*.json")):
+            for r in json.loads(f.read_text()):
+                if "error" in r:
+                    raise AssertionError(f"dry-run {r['arch']} {r['cell']}: "
+                                         f"{r['error']}\n{r['traceback']}")
+                rf = r["roofline"]
+                cells.append({
+                    "arch": r["arch"], "cell": r["cell"], "mesh": r["mesh"],
+                    "trace_s": r["compile_s"],
+                    "gib_a_device": r["memory"]["total_per_device"] / 2**30,
+                    "t_compute_ms": rf["t_compute"] * 1e3,
+                    "t_memory_ms": rf["t_memory"] * 1e3,
+                    "t_collective_ms": rf["t_collective"] * 1e3,
+                    "bottleneck": rf["bottleneck"]})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    emit("dryrun_sweep", args=list(DRYRUN_SWEEP), seconds=sweep_s,
+         cells=cells)
+    emit("dryrun_summary", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nodes", type=int, default=480,
                    help="dense-urban fleet size (S = 3 * nodes)")
     p.add_argument("--batch", type=int, default=32, help="replicas B")
-    p.add_argument("--requests", type=int, default=FULL_REQUESTS // 2,
-                   help="n_ai_requests per replica (default: half the "
-                        f"reference bench's {FULL_REQUESTS}, which keeps the "
-                        "three run_batch passes to a few minutes on a slow "
+    p.add_argument("--requests", type=int, default=FULL_REQUESTS // 8,
+                   help="n_ai_requests per replica (default: an eighth of "
+                        f"the reference bench's {FULL_REQUESTS}, which keeps "
+                        "the three run_batch passes near a minute on a slow "
                         "host; S and B are never cut)")
     p.add_argument("--alloc-n", type=int, default=16384,
                    help="node rows of the fleet-wide allocator solve")
@@ -2485,9 +3007,10 @@ def main() -> None:
     p.add_argument("--critic-epochs", type=int, default=2000,
                    help="training epochs of the critic (the reference's "
                         "2000)")
-    p.add_argument("--only", choices=("train",),
+    p.add_argument("--only", choices=("train", "mesh", "dryrun"),
                    help="a rehearsal: phase env, then only this phase (no "
-                        "kernel is built; no kernels line, no ok line)")
+                        "kernels line, no ok line; kernels are built for "
+                        "mesh only)")
     args = p.parse_args()
 
     # float32 products in full float32 everywhere (the defaults for matmul,
@@ -2499,8 +3022,12 @@ def main() -> None:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=kind, capability=list(torch.cuda.get_device_capability(0)),
          nvidia_smi=smi)
-    if args.only == "train":
-        phase_train()
+    if args.only:
+        if args.only == "mesh":
+            _build.build_all()
+            _build.load()
+        {"train": phase_train, "mesh": phase_mesh,
+         "dryrun": phase_dryrun}[args.only]()
         print(smi, flush=True)
         return
 
@@ -2521,6 +3048,8 @@ def main() -> None:
     alloc_launches = phase_allocate_cluster(args)
     served = phase_serve()
     phase_train()
+    mesh_launches = phase_mesh()
+    phase_dryrun()
 
     def row(name, rec, launches, replaces, tolerance, path):
         lib_ms = rec.get("library_ms")
@@ -2562,14 +3091,17 @@ def main() -> None:
              wrapper_host_us=alloc["wrapper_host_us"],
              wrapper_host_us_p10=alloc["wrapper_host_us_p10"]),
         dict(row("flash_attention", mk["flash_attention"],
-                 sum(served["flash_attention"].values()),
+                 sum(served["flash_attention"].values()) + mesh_launches,
                  "src/repro/kernels/flash_attention.py:29",
                  mk["flash_attention"]["tolerance"],
                  "impl='flash' prefills: one launch per causal "
                  "self-attention (qwen2-0.5b and llava per layer, zamba2 per "
                  "shared-block application, whisper per decoder layer; "
-                 "deepseek's MLA none, as in the reference)"),
-             launches_by_path=served["flash_attention"],
+                 "deepseek's MLA none, as in the reference), and qwen2-0.5b's "
+                 "prefill on the 2x2 mesh of phase mesh (each of 4 ranks "
+                 "launches on its shard)"),
+             launches_by_path={**served["flash_attention"],
+                               "mesh_prefill": mesh_launches},
              at_zamba2=mk["flash_attention"]["zamba2"]),
         dict(row("ssd_scan", mk["ssd_scan"], sum(served["ssd_scan"].values()),
                  "src/repro/kernels/ssd_scan.py:25",

@@ -1,5 +1,6 @@
-"""Distribution substrate: sharding rules, checkpointing, compression,
-failure handling (twin of ``repro.distributed``)."""
+"""Distribution substrate: sharding rules, placement on a device mesh
+(:mod:`.placement`), checkpointing, compression, failure handling (twin of
+``repro.distributed``)."""
 from repro_torch.distributed.sharding import (ShardingRules, DEFAULT_RULES,
                                               spec_for, params_shardings,
                                               batch_sharding, tree_shardings)

@@ -17,6 +17,10 @@ the reference's tree, and split again on restore.  npz cannot store
 bfloat16: such a leaf is saved as its uint16 bit view with the dtype tag
 ``"bfloat16"`` (the reference's encoding) and decoded here through
 ``torch.bfloat16`` (no ``ml_dtypes`` needed).
+
+A state placed on a device mesh is saved whole, in the same one archive
+(the reference has no per-rank files), and restores on a mesh, in one
+process or in the reference alike.
 """
 from __future__ import annotations
 
@@ -30,7 +34,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.distributed.placement import gather_full
 from repro_torch.models.common import stack_trees
 
 Tree = Any
@@ -103,15 +110,40 @@ def _describe(tree: Tree) -> str:
 def save_checkpoint(ckpt_dir: str, step: int, params: Tree,
                     opt_state: Optional[Tree] = None,
                     extra: Optional[Dict] = None) -> str:
-    """Atomic write of step's state; returns the committed path."""
+    """Atomic write of step's state; returns the committed path.  A state
+    placed on a device mesh (``DTensor`` leaves) is gathered whole on every
+    rank, rank 0 writes the one archive and the others wait for it at a
+    barrier: call it on every rank."""
+    payload = {"params": params}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
     root = pathlib.Path(ckpt_dir)
-    root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
+    if not _has_dtensor(payload):
+        _write(root, final, step, payload, extra)
+        return str(final)
+    payload = gather_full(payload)
+    try:
+        if dist.get_rank() == 0:
+            _write(root, final, step, payload, extra)
+    finally:
+        dist.barrier()
+    return str(final)
+
+
+def _has_dtensor(tree: Tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return isinstance(tree, DTensor)
+
+
+def _write(root: pathlib.Path, final: pathlib.Path, step: int,
+           payload: Tree, extra: Optional[Dict]) -> None:
+    root.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=root, prefix=".tmp_"))
     try:
-        payload = {"params": params}
-        if opt_state is not None:
-            payload["opt_state"] = opt_state
         arrays = _flatten(payload)
         dtypes = {}
         enc = {}
@@ -132,7 +164,6 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Tree,
     except BaseException:
         _rmtree(tmp)
         raise
-    return str(final)
 
 
 def restore_checkpoint(ckpt_dir: str, template: Tree,
@@ -145,7 +176,9 @@ def restore_checkpoint(ckpt_dir: str, template: Tree,
     (``{"params": ..., "opt_state": ...?}``; leaves are tensors or anything
     with a ``.shape``, per-layer lists where the port keeps them).  Each
     leaf comes back in its stored dtype, on its template tensor's device
-    (``device``, default the CPU, for a template leaf that is no tensor).
+    (``device``, default the CPU, for a template leaf that is no tensor);
+    a ``DTensor`` template leaf gets the full array placed as it is placed
+    (every rank reads the archive).
     Raises ``KeyError`` for a leaf the checkpoint lacks and ``ValueError``
     for a shape that differs from the template's (stacked) shape.
     """
@@ -190,6 +223,10 @@ def restore_checkpoint(ckpt_dir: str, template: Tree,
                              f"model shape {want}")
         if layer is not None:
             arr = arr[layer[0]]
+        if isinstance(tmpl, DTensor):
+            return distribute_tensor(arr.to(tmpl.to_local().device),
+                                     tmpl.device_mesh, tmpl.placements,
+                                     src_data_rank=None)
         dev = tmpl.device if isinstance(tmpl, torch.Tensor) else default
         return arr.to(dev)
 

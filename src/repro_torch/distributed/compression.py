@@ -15,7 +15,8 @@ reference's bit for bit on the same float32 input: the scale is
 per-layer pieces of a stacked leaf (``models.common.STACKED``, lists here)
 share one scale, the largest magnitude over all of them, as the reference's
 ``[L, ...]`` tensor has.  Quantizing each piece on its own would give every
-layer its own scale and another trajectory.
+layer its own scale and another trajectory.  On a device mesh the scale
+is the largest magnitude of the global tensor, whatever its shards.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.placement import to_plain
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
@@ -33,8 +35,10 @@ class CompressionState(NamedTuple):
 
 
 def init_state(grads_like: Tree) -> CompressionState:
+    """Zero accumulators shaped (and placed) like ``grads_like``."""
     return CompressionState(error=tree_map(
-        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+        lambda g: torch.zeros_like(g, dtype=torch.float32,
+                                   memory_format=torch.contiguous_format),
         grads_like))
 
 
@@ -48,7 +52,8 @@ def compress_int8_pieces(xs: Sequence[torch.Tensor]
                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """:func:`compress_int8` of the tensor the pieces ``xs`` stack into
     (one scale for all), without stacking them."""
-    amax = torch.stack([torch.max(torch.abs(x)) for x in xs]).max().float()
+    amax = torch.stack([to_plain(torch.max(torch.abs(x)))
+                        for x in xs]).max().float()
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     return [torch.clamp(torch.round(x.float() / scale), -127, 127).to(
         torch.int8) for x in xs], scale

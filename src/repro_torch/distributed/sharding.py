@@ -10,11 +10,11 @@ falls back to replication for that dim -- recorded per tensor by
 ``spec_report``.
 
 A mesh is anything with a ``.shape`` mapping of axis name -> size
-(``launch.mesh.MeshShape``).  A spec is a tuple with the entries of the
-reference's ``PartitionSpec`` (a mesh axis name, a tuple of them, or None
-per dim, trailing Nones dropped); a tree of specs keeps the reference's
-stacked keys.  The specs are computed and checked; placing shards on
-several cards is not done yet (ROADMAP Queue A, multi-GPU placement).
+(``launch.mesh.MeshShape``; ``launch.mesh.mesh_shape`` of a
+``DeviceMesh``).  A spec is a tuple with the entries of the reference's
+``PartitionSpec`` (a mesh axis name, a tuple of them, or None per dim,
+trailing Nones dropped); a tree of specs keeps the reference's stacked keys.
+``distributed.placement`` places tensors on a device mesh by these specs.
 """
 from __future__ import annotations
 

@@ -12,13 +12,15 @@ tensor outside autograd, so its output would silently be a constant to a
 backward pass; ``flash_attention`` and ``ssd_scan``, which the models reach,
 therefore raise where grad mode is on and an input requires grad, on every
 device, so that the CPU's differentiable plain path and the card agree.
-Training takes ``impl="xla"``, as in the reference.
+Training takes ``impl="xla"``, as in the reference.  On a device mesh
+``flash_attention`` takes ``DTensor``s and launches on each rank's shard.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
@@ -164,7 +166,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d] in q's dtype (blockwise
     online softmax, float32 statistics).  Inputs are made contiguous; any
     ``S`` is taken as it is (the kernel masks the tails).  Raises under
-    autograd (see the module docstring)."""
+    autograd (see the module docstring).
+
+    ``DTensor`` inputs on a device mesh: each rank launches the kernel on
+    its own shard, which must hold whole heads and the whole sequence
+    (batch and heads may be sharded, q, k and v alike, and the KV heads
+    must divide the heads' shards so that no query group straddles two);
+    any other layout raises ``ValueError`` naming it."""
+    if isinstance(q, DTensor):
+        return _flash_on_shards(q, k, v, causal)
     _refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or q.numel() == 0:
         raise ValueError(f"flash_attention: expected non-empty q [B,S,H,d] "
@@ -188,6 +198,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                causal)
     _launches["flash_attention"] += 1
     return out
+
+
+def _flash_on_shards(q, k, v, causal: bool) -> DTensor:
+    """:func:`flash_attention` of each rank's shard (see there)."""
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)):
+        raise ValueError("flash_attention: q is a DTensor and k, v are not")
+    mesh, pl = q.device_mesh, q.placements
+    for name, t in (("k", k), ("v", v)):
+        if t.device_mesh != mesh or t.placements != pl:
+            raise ValueError(f"flash_attention: {name} is placed "
+                             f"{t.placements}, q {pl}; they must agree")
+    for dim_name, p in zip(mesh.mesh_dim_names, pl):
+        if not (isinstance(p, Replicate)
+                or isinstance(p, Shard) and p.dim in (0, 2)):
+            raise ValueError(
+                f"flash_attention: placement {p} on mesh dim {dim_name!r} "
+                f"splits a head or the sequence (or is partial); the kernel "
+                f"takes shards of batch (dim 0) and whole heads (dim 2) only")
+        if isinstance(p, Shard) and p.dim == 2 and \
+                k.shape[2] % mesh.size(mesh.mesh_dim_names.index(dim_name)):
+            raise ValueError(
+                f"flash_attention: heads sharded on {dim_name!r} "
+                f"({mesh.size(mesh.mesh_dim_names.index(dim_name))} ways) "
+                f"with {k.shape[2]} KV heads would split a query group")
+    out = flash_attention(q.to_local(), k.to_local(), v.to_local(),
+                          causal=causal)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -8,6 +8,14 @@
 It trains on the card: without ``--device`` it runs on CUDA and raises
 ``RuntimeError`` where there is none (``--device cpu`` runs the plain torch
 path on the host).  Training runs ``impl="xla"``, as in the reference.
+``--mesh DATAxMODEL`` trains on a device mesh of that shape, one process a
+device, over the process group that ``torchrun`` describes in the
+environment (NCCL on CUDA, gloo with ``--device cpu``); every rank runs
+the same command:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-0.5b \
+      --preset smoke --device cpu --steps 4 --seq-len 16 --global-batch 4 \
+      --mesh 2x2
 An encoder-decoder config (whisper) is fed stub encoder frames beside the
 tokens (``data.FramesPipeline``): the reference feeds tokens only and fails
 on it (ROADMAP Queue C R7).
@@ -16,11 +24,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataPipeline, FramesPipeline
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.api import Model
 from repro_torch.train.loop import TrainConfig, train
 
@@ -52,6 +64,21 @@ def preset_config(arch: str, preset: str) -> ArchConfig:
     raise ValueError(preset)
 
 
+def init_from_env(device) -> None:
+    """The process group of ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), NCCL on CUDA with
+    this process on card ``LOCAL_RANK``, gloo on the host; nothing where a
+    group is initialised already."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        return
+    if torch.device(device or "cuda").type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
 def make_pipeline(cfg: ArchConfig, seq_len: int, global_batch: int):
     """The launcher's data: the token pipeline, with stub encoder frames
     for an encoder-decoder config."""
@@ -77,7 +104,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
     ap.add_argument("--remat", default="dots")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL (e.g. 2x2): train on a device mesh of "
+                         "that shape over the process group torchrun "
+                         "starts, one process a device")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        data, width = (int(n) for n in args.mesh.lower().split("x"))
+        mesh = MeshShape(("data", "model"), (data, width))
+        init_from_env(args.device)
 
     cfg = preset_config(args.arch, args.preset)
     model = Model(cfg, remat=args.remat, device=args.device)
@@ -87,7 +123,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
                      checkpoint_every=args.checkpoint_every,
                      checkpoint_dir=args.checkpoint_dir,
                      compress_grads=args.compress_grads)
-    hist = train(model, pipeline, tc, device=args.device)
+    hist = train(model, pipeline, tc, device=args.device, mesh=mesh)
     print(f"[launch] done: loss {hist['loss'][0]:.3f} -> "
           f"{hist['loss'][-1]:.3f} over {len(hist['loss'])} steps; "
           f"restarts={hist['restarts']}")

@@ -34,11 +34,15 @@ Entry points run on the GPU unless the caller asks for the CPU:
 which each stacked subtree of the reference (``common.STACKED``) is a list
 of per-layer dicts; caches keep the reference's stacked layout (``[L, B, S,
 ...]`` KV tables, SSM / conv states ``[L, B, ...]``).  ``decode_step``
-updates the cache in place.
+updates the cache in place.  Parameters, batches and caches placed on a
+device mesh (``distributed.placement``, ``DTensor`` leaves) run through the
+same entry points, as the reference's run under ``jit`` with
+``in_shardings``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -48,7 +52,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.common import (REMATS, STACKED, ParamDef,
                                        checkpointed, cross_entropy_loss,
-                                       init_params, param_axes,
+                                       embed_lookup, init_params, mesh_einsum,
+                                       mesh_scope, param_axes,
                                        param_count_tree, param_specs,
                                        rms_norm, scan_layers, split_layers,
                                        split_stacked, stack_defs, tree_map)
@@ -77,11 +82,12 @@ def _ssm_lm_defs(cfg: ArchConfig) -> Dict[str, Tree]:
 def _ssm_lm_logits(params, h, cfg):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", h, w)
+    return mesh_einsum("bsd,dv->bsv", h, w)
 
 
 def _ssm_embed(params, tokens, cfg):
-    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+    return embed_lookup(params["embed"], tokens).to(
+        getattr(torch, cfg.compute_dtype))
 
 
 def _ssm_lm_forward(params, batch, cfg, impl="xla"):
@@ -140,6 +146,15 @@ def _ssm_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
 # --------------------------------------------------------------------------- #
 # unified wrapper
 # --------------------------------------------------------------------------- #
+def _mesh_aware(fn):
+    """A compute entry point under ``common.mesh_scope``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with mesh_scope():
+            return fn(*args, **kwargs)
+    return run
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means CUDA; a CUDA device that is not there raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -214,6 +229,7 @@ class Model:
         return param_count_tree(self.param_defs())
 
     # ---- compute ---- #
+    @_mesh_aware
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
         """The training objective (a float32 scalar): next-token cross
         entropy, plus the MoE aux and MTP losses where configured."""
@@ -230,6 +246,7 @@ class Model:
         return transformer.lm_loss(params, batch, self.cfg, impl=self.impl,
                                    remat=self.remat)
 
+    @_mesh_aware
     def forward(self, params: Tree, batch: Dict) -> torch.Tensor:
         f = self.cfg.family
         if f == "ssm":
@@ -243,6 +260,7 @@ class Model:
         return transformer.lm_forward(params, batch, self.cfg,
                                       impl=self.impl)
 
+    @_mesh_aware
     def prefill(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
         f = self.cfg.family
         if f == "ssm":
@@ -255,6 +273,7 @@ class Model:
                                          impl=self.impl)
         return transformer.lm_prefill(params, batch, self.cfg, impl=self.impl)
 
+    @_mesh_aware
     def decode_step(self, params: Tree, cache: Tree, batch: Dict
                     ) -> Tuple[torch.Tensor, Tree]:
         f = self.cfg.family

@@ -16,7 +16,9 @@ Twin of the reference's ``models/attention.py``.  Lowerings:
 
 Decode writes the new cache rows into the cache tensors in place and
 returns them, where the reference returns updated copies: the port saves
-copying the whole cache on every generated token.
+copying the whole cache on every generated token.  On a device mesh
+(``DTensor`` inputs) attention runs on whole heads, sharded over ``model``
+where the KV heads divide it (:func:`mesh_heads`).
 """
 from __future__ import annotations
 
@@ -24,10 +26,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ParamDef, apply_rope, rms_norm
+from repro_torch.models.common import (ParamDef, apply_rope, mesh_einsum,
+                                       model_extent, rms_norm, shard_as)
 
 NEG_INF = -1e30
 
@@ -35,6 +39,31 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------- #
 # core scaled-dot-product attention (grouped, no kv repeat materialization)
 # --------------------------------------------------------------------------- #
+def mesh_heads(q, k, v):
+    """On a device mesh, q [B,Sq,H,*] and k, v [B,Sk,KV,*] batch-sharded
+    and head-sharded over ``model`` where the KV heads divide it, so that
+    no query group straddles two shards; else heads replicated.  Plain
+    tensors pass through."""
+    if not isinstance(q, DTensor):
+        return q, k, v
+    heads = 2 if k.shape[2] % model_extent(q.device_mesh) == 0 else None
+    return (shard_as(q, 0, heads), shard_as(k, 0, heads),
+            shard_as(v, 0, heads))
+
+
+def on_head_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` of attention inputs placed by
+    :func:`mesh_heads`, run on each rank's whole heads and batch rows (the
+    result is that rank's shard of the output, placed as ``q``).  Plain
+    tensors go to ``fn`` as they are."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    q, k, v = mesh_heads(q, k, v)
+    out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
+
+
 def _sdpa_block(q, k, v, *, scale, causal, q_pos, k_pos):
     """q [B,Sq,KV,G,hd]; k/v [B,Sk,KV,hd]; positions for masking."""
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
@@ -54,6 +83,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     loop over query blocks where block i only reads keys
     ``[0 : (i+1)*chunk_q]`` — block-exact causal FLOPs.
     """
+    if isinstance(q, DTensor):
+        return on_head_shards(sdpa, q, k, v, causal=causal,
+                              q_offset=q_offset, chunk_q=chunk_q)
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     hd_v = v.shape[-1]
@@ -82,6 +114,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def sdpa_decode(q, k_cache, v_cache, *, pos: int, scale=None):
     """q [B,1,H,hd]; caches [B,S,KV,hd]; pos: last valid index."""
+    if isinstance(q, DTensor):
+        return on_head_shards(sdpa_decode, q, k_cache, v_cache, pos=pos,
+                              scale=scale)
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
     scale = scale or 1.0 / math.sqrt(hd)
@@ -119,9 +154,9 @@ def gqa_defs(cfg: ArchConfig, num_heads=None,
 
 
 def _project_qkv(p, x, kv_x, cfg):
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dhe->bshe", kv_x, p["wk"])
-    v = torch.einsum("bsd,dhe->bshe", kv_x, p["wv"])
+    q = mesh_einsum("bsd,dhe->bshe", x, p["wq"])
+    k = mesh_einsum("bsd,dhe->bshe", kv_x, p["wk"])
+    v = mesh_einsum("bsd,dhe->bshe", kv_x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -145,10 +180,10 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     chunk = cfg.attn_chunk_q if (S >= cfg.attn_chunk_threshold
                                  and causal) else None
     if impl == "flash" and causal and kv_x is None:
-        out = kops.flash_attention(q, k, v, causal=True)
+        out = kops.flash_attention(*mesh_heads(q, k, v), causal=True)
     else:
         out = sdpa(q, k, v, causal=causal, chunk_q=chunk)
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, {"k": k, "v": v}
 
 
@@ -165,7 +200,7 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
     out = sdpa_decode(q, cache["k"], cache["v"], pos=pos)
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, cache
 
 
@@ -173,9 +208,9 @@ def gqa_cross_decode(p: Dict, x: torch.Tensor, cache: Dict,
                      cfg: ArchConfig) -> torch.Tensor:
     """Cross attention during decode against the precomputed (fixed) encoder
     keys and values ``cache {"k", "v"} [B,T,KV,hd]``."""
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q = mesh_einsum("bsd,dhe->bshe", x, p["wq"])
     out = sdpa(q, cache["k"], cache["v"], causal=False)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return mesh_einsum("bshe,hed->bsd", out, p["wo"])
 
 
 # --------------------------------------------------------------------------- #
@@ -207,11 +242,11 @@ def _mla_q(p, x, cfg):
     """(q_nope, q_rope), each ``[B,S,H,*]``."""
     c = cfg.mla
     if c.q_lora_rank:
-        q = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        q = mesh_einsum("bsd,dr->bsr", x, p["wq_a"])
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        q = torch.einsum("bsr,rhe->bshe", q, p["wq_b"])
+        q = mesh_einsum("bsr,rhe->bshe", q, p["wq_b"])
     else:
-        q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+        q = mesh_einsum("bsd,dhe->bshe", x, p["wq"])
     return torch.split(q, [c.qk_nope_head_dim, c.qk_rope_head_dim], dim=-1)
 
 
@@ -219,7 +254,7 @@ def _mla_latent(p, x, positions, cfg):
     """The compressed cache rows of ``x``: normed ``c_kv [B,S,r]`` and the
     roped ``k_rope [B,S,rope]``."""
     c = cfg.mla
-    kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    kv = mesh_einsum("bsd,dr->bsr", x, p["wkv_a"])
     c_kv, k_rope = torch.split(kv, [c.kv_lora_rank, c.qk_rope_head_dim],
                                dim=-1)
     c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
@@ -242,7 +277,7 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = _mla_latent(p, x, positions, cfg)
 
-    kv_up = torch.einsum("bsr,rhe->bshe", c_kv, p["wkv_b"])
+    kv_up = mesh_einsum("bsr,rhe->bshe", c_kv, p["wkv_b"])
     k_nope, v = torch.split(kv_up, [c.qk_nope_head_dim, c.v_head_dim],
                             dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
@@ -251,7 +286,7 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     chunk = cfg.attn_chunk_q if S >= cfg.attn_chunk_threshold else None
     # sdpa scales by 1 / sqrt(q.shape[-1]) = 1 / sqrt(nope + rope)
     out = sdpa(q, k, v, causal=True, chunk_q=chunk)
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 
@@ -274,7 +309,7 @@ def mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
 
     w_k, w_v = torch.split(p["wkv_b"], [c.qk_nope_head_dim, c.v_head_dim],
                            dim=-1)                          # [r,H,dk], [r,H,dv]
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_k)    # [B,1,H,r]
+    q_lat = mesh_einsum("bqhd,rhd->bqhr", q_nope, w_k)    # [B,1,H,r]
     scale = 1.0 / math.sqrt(c.qk_nope_head_dim + c.qk_rope_head_dim)
     scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
               + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope))
@@ -283,6 +318,6 @@ def mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
     o_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)    # [B,1,H,r]
-    out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_v)       # [B,1,H,dv]
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    out = mesh_einsum("bqhr,rhd->bqhd", o_lat, w_v)       # [B,1,H,dv]
+    y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, cache

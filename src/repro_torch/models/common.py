@@ -7,15 +7,16 @@ an explicit device from an explicit ``torch.Generator``, with the
 reference's distributions (the values differ: the two frameworks' generators
 do).
 
-Differences from the reference, all forced by running eagerly on one device:
+Differences from the reference, all forced by running eagerly:
 
 - layer parameters are defined stacked (``[L, ...]``, :func:`stack_defs`,
   so counts and initial scales match the reference) and then held as a list
   of per-layer dicts (:func:`split_layers`); :data:`STACKED` names the
   subtrees that are stacked in the reference (:func:`split_stacked`);
 - ``scan_layers`` is a Python loop over that list;
-- ``shard_batch`` has no counterpart: it is a sharding constraint that is a
-  no-op without a device mesh, and the port runs on one device;
+- :func:`shard_batch`, the reference's sharding constraint, redistributes a
+  ``DTensor`` (``distributed.placement``) and is the identity on a plain
+  tensor;
 - activation checkpointing (:func:`checkpointed`) wraps one layer in
   ``torch.utils.checkpoint`` where the reference wraps the scan body in
   ``jax.checkpoint``.
@@ -25,14 +26,18 @@ tree, so their keys and shapes are the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -282,9 +287,9 @@ def sinusoidal_position(length: int, d_model: int, pos: int,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("...d,df->...f", x, w_gate)
-    u = torch.einsum("...d,df->...f", x, w_up)
-    return torch.einsum("...f,fd->...d", F.silu(g) * u, w_down)
+    g = mesh_einsum("...d,df->...f", x, w_gate)
+    u = mesh_einsum("...d,df->...f", x, w_up)
+    return mesh_einsum("...f,fd->...d", F.silu(g) * u, w_down)
 
 
 def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
@@ -295,15 +300,193 @@ def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
     }
 
 
+BATCH_MESH_DIMS = ("pod", "data")
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_scope():
+    """Plain tensors that meet ``DTensor``s (positions, masks, iotas made
+    inside the model, and what autograd saved of them) taken as replicated;
+    nothing changes for plain inputs.  Nests (``implicit_replication``
+    alone clears its flag on the inner exit)."""
+    depth = getattr(_scope, "depth", 0)
+    _scope.depth = depth + 1
+    try:
+        if depth:
+            yield
+        else:
+            with implicit_replication():
+                yield
+    finally:
+        _scope.depth = depth
+
+
+
+def batch_extent(mesh) -> int:
+    """The ranks a batch is split over: the ``(pod, data)`` dims' sizes."""
+    return math.prod(mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
+                     if n in BATCH_MESH_DIMS)
+
+
+def model_extent(mesh) -> int:
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
+def layout(mesh, batch, model=Replicate()) -> List:
+    """One placement per mesh dim: ``batch`` on the ``(pod, data)`` dims,
+    ``model`` on ``model``, replicated on any other."""
+    return [batch if n in BATCH_MESH_DIMS else model if n == "model" else
+            Replicate() for n in mesh.mesh_dim_names]
+
+
+def placed_on(t: DTensor, mesh_dim: str):
+    """``t``'s placement on the mesh dim named ``mesh_dim`` (None where the
+    mesh has no such dim)."""
+    return dict(zip(t.device_mesh.mesh_dim_names, t.placements)).get(
+        mesh_dim)
+
+
+def shard_as(x: torch.Tensor, batch: Optional[int] = 0,
+             model: Optional[int] = None) -> torch.Tensor:
+    """A ``DTensor`` redistributed to dim ``batch`` sharded over ``(pod,
+    data)``, dim ``model`` over ``model`` and replicated otherwise (a dim
+    its mesh dims do not divide stays replicated).  The identity on a
+    plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    split_b = batch is not None and x.shape[batch] % batch_extent(mesh) == 0
+    split_m = model is not None and x.shape[model] % model_extent(mesh) == 0
+    want = tuple(layout(mesh, Shard(batch) if split_b else Replicate(),
+                        Shard(model) if split_m else Replicate()))
+    return x if x.placements == want else x.redistribute(mesh, want)
+
+
+def mesh_einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` (batch first) and
+    a weight ``w``.  On ``DTensor``s it is laid out as GSPMD lays out such a
+    product under the FSDP + tensor-parallel rules: ``w`` gathered over
+    ``(pod, data)`` and kept sharded over ``model`` on its one sharded dim
+    (letter ``m``), ``x`` batch-sharded and sharded on ``m`` where it has
+    it, the local einsum run on each rank's pieces, and the result
+    batch-sharded and sharded on ``m`` (or ``Partial`` over ``model`` where
+    ``m`` was contracted).  Left to itself, DTensor's propagation may shard
+    a flattened ``heads × head_dim`` dim that the following view cannot
+    split (14 heads over 16 shards).  Plain tensors take ``torch.einsum``
+    as they are."""
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return torch.einsum(eq, x, w)
+    ins, out = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    if "..." in xs:
+        fill = "ABCDEFGH"[:x.dim() - len(xs) + 3]
+        xs, out = xs.replace("...", fill), out.replace("...", fill)
+    mesh = w.device_mesh
+    on_w = placed_on(w, "model")
+    m = ws[on_w.dim] if isinstance(on_w, Shard) else None
+    split = x.shape[0] % batch_extent(mesh) == 0
+    batch = Shard(0) if split else Replicate()
+
+    def on(sub, otherwise):
+        return Shard(sub.index(m)) if m and m in sub else otherwise
+
+    rep = Replicate()
+    contracted = Partial() if m else rep
+    xl = x.redistribute(mesh, layout(mesh, batch, on(xs, rep))).to_local(
+        grad_placements=layout(mesh, batch, on(xs, contracted)))
+    wl = w.redistribute(mesh, layout(mesh, rep, on(ws, rep))).to_local(
+        grad_placements=layout(mesh, Partial() if split else rep,
+                               on(ws, rep)))
+    return DTensor.from_local(torch.einsum(f"{xs},{ws}->{out}", xl, wl),
+                              mesh, layout(mesh, batch, on(out, contracted)),
+                              run_check=False)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding ``table [V, D]``.  On a device mesh
+    vocab-parallel: the table gathered over ``(pod, data)`` and kept
+    sharded over ``model`` on the vocabulary, each rank reading the rows it
+    holds (zeros elsewhere), the result ``Partial`` over ``model``.
+    DTensor's own index and its backward (an ``index_put``) have no rule for
+    a sharded table in every release."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    tokens = shard_as(tokens, 0)
+    batch = placed_on(tokens, "data") or Replicate()
+    on_model = placed_on(table, "model")
+    split = isinstance(on_model, Shard)
+    rep = Replicate()
+    local = table.redistribute(mesh, layout(mesh, rep, on_model or rep)) \
+        .to_local(grad_placements=layout(
+            mesh, Partial() if isinstance(batch, Shard) else rep,
+            on_model or rep))
+    ids = tokens.to_local().long()
+    if split:
+        ids = ids - mesh.get_local_rank("model") * local.shape[0]
+        mine = (ids >= 0) & (ids < local.shape[0])
+        rows = local[ids.clamp(0, local.shape[0] - 1)] * mine[..., None]
+    else:
+        rows = local[ids]
+    return DTensor.from_local(rows, mesh,
+                              layout(mesh, batch, Partial() if split else rep),
+                              run_check=False)
+
+
+def _nll_on_shards(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """Per-token negative log-likelihood of batch- and vocab-sharded
+    logits, vocab-parallel: each rank's log-sum-exp over its columns (the
+    row maximum and the sum of exponentials reduced over ``model``) and the
+    gold logit by the reference's iota-compare select and sum over its
+    columns (``Partial`` over ``model``).  DTensor's own log-sum-exp and
+    gather collect ``[B, S, V]`` whole."""
+    vdim = logits.dim() - 1
+    logits, labels = shard_as(logits, 0, vdim), shard_as(labels, 0)
+    mesh = logits.device_mesh
+    split = isinstance(placed_on(logits, "model"), Shard)
+    batch = placed_on(logits, "data") or Replicate()
+
+    def wrap(t, reduce_op):
+        return DTensor.from_local(t, mesh, layout(
+            mesh, batch, Partial(reduce_op) if split else Replicate()),
+            run_check=False)
+    ll = logits.to_local().float()
+    v0 = mesh.get_local_rank("model") * ll.shape[-1] if split else 0
+    whole = layout(mesh, batch)
+    m = wrap(ll.detach().amax(dim=-1), "max").redistribute(mesh, whole) \
+        .to_local()
+    sumexp = wrap(torch.exp(ll - m[..., None]).sum(dim=-1), "sum") \
+        .redistribute(mesh, whole)
+    iota = v0 + torch.arange(ll.shape[-1], device=ll.device)
+    gold = wrap(torch.sum(torch.where(
+        labels.to_local().long()[..., None] == iota, ll, 0.0), dim=-1), "sum")
+    m = DTensor.from_local(m, mesh, whole, run_check=False)
+    return torch.log(sumexp) + m - gold
+
+
+def shard_batch(x: torch.Tensor) -> torch.Tensor:
+    """A ``[B, ...]`` activation sharded on batch over ``(pod, data)`` and
+    replicated on every other mesh dim: the reference's
+    ``with_sharding_constraint`` at layer boundaries, as a redistribution
+    of a ``DTensor``.  The identity on a plain tensor."""
+    return shard_as(x, 0)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token negative log-likelihood in float32.  logits [..., V],
-    labels [...] (integer).  The gold logit is read by ``gather`` (the
-    reference's iota-compare select picks the same single element)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    labels [...] (integer).  The gold logit is read by ``gather`` from a
+    plain tensor; on a device mesh see :func:`_nll_on_shards`."""
+    if isinstance(logits, DTensor):
+        nll = _nll_on_shards(logits, labels)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)

@@ -25,8 +25,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ParamDef, checkpointed,
-                                       cross_entropy_loss, mlp_defs,
-                                       rms_norm, scan_layers, sinusoidal_position,
+                                       cross_entropy_loss, embed_lookup,
+                                       mesh_einsum, mlp_defs, rms_norm,
+                                       scan_layers, shard_batch,
+                                       sinusoidal_position,
                                        sinusoidal_positions, split_layers,
                                        stack_defs, swiglu)
 
@@ -68,8 +70,8 @@ def encdec_defs(cfg: ArchConfig) -> Dict[str, Tree]:
 
 def _mlp(lp: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"],
-                      lp["mlp"]["down"])
+    return shard_batch(h + swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"],
+                                  lp["mlp"]["down"]))
 
 
 def _encode(params: Tree, frames: torch.Tensor, cfg: ArchConfig,
@@ -81,7 +83,7 @@ def _encode(params: Tree, frames: torch.Tensor, cfg: ArchConfig,
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         a, _ = attn.gqa_forward(lp["attn"], x, cfg, causal=False,
                                 use_rope=False, impl=impl)
-        h = _mlp(lp, h + a, cfg)
+        h = _mlp(lp, shard_batch(h + a), cfg)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -98,14 +100,15 @@ def _dec_layer(h, lp, enc_out, cfg: ArchConfig, impl: str):
 
 
 def _embed(params: Tree, tokens: torch.Tensor, cfg: ArchConfig):
-    h = params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+    h = embed_lookup(params["embed"], tokens).to(
+        getattr(torch, cfg.compute_dtype))
     return h + sinusoidal_positions(tokens.shape[1], cfg.d_model,
                                     h.device).to(h.dtype)[None]
 
 
 def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    return mesh_einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
 def encdec_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
@@ -142,7 +145,8 @@ def encdec_decode_step(params: Tree, cache: Tree, batch: Dict,
     """One decode step; the self-attention cache is written in place and
     the same cache returned."""
     pos = int(batch["pos"])
-    h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.compute_dtype))
+    h = embed_lookup(params["embed"], batch["tokens"]).to(
+        getattr(torch, cfg.compute_dtype))
     S_table = max(cache["self"]["k"].shape[2], 1)
     h = h + sinusoidal_position(S_table, cfg.d_model, pos,
                                 h.device).to(h.dtype)[None]

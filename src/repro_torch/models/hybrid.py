@@ -29,8 +29,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, checkpointed,
-                                       cross_entropy_loss, mlp_defs,
-                                       rms_norm, split_layers, stack_defs,
+                                       cross_entropy_loss, embed_lookup,
+                                       mesh_einsum, mlp_defs, rms_norm,
+                                       shard_batch, split_layers, stack_defs,
                                        stack_trees, swiglu)
 
 Tree = Any
@@ -69,18 +70,19 @@ def _groups(params: Tree, cfg: ArchConfig):
 
 
 def _embed(params: Tree, tokens: torch.Tensor, cfg: ArchConfig):
-    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+    return embed_lookup(params["embed"], tokens).to(
+        getattr(torch, cfg.compute_dtype))
 
 
 def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    return mesh_einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
 def _mlp(sp: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = rms_norm(h, sp["ln2"], cfg.norm_eps)
-    return h + swiglu(x, sp["mlp"]["gate"], sp["mlp"]["up"],
-                      sp["mlp"]["down"])
+    return shard_batch(h + swiglu(x, sp["mlp"]["gate"], sp["mlp"]["up"],
+                                  sp["mlp"]["down"]))
 
 
 def _shared_fwd(sp: Tree, h: torch.Tensor, cfg: ArchConfig,

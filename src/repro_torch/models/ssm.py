@@ -16,10 +16,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ParamDef, rms_norm
+from repro_torch.models.common import (ParamDef, batch_extent, layout,
+                                       mesh_einsum, model_extent, placed_on,
+                                       rms_norm, shard_as, shard_batch)
 
 
 def ssm_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
@@ -52,13 +55,33 @@ def ssm_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv as static shifts.  x [B,S,C]; w [K,C]."""
+    """Depthwise causal conv as static shifts.  x [B,S,C]; w [K,C].  On a
+    device mesh each rank convolves its own rows and channels (DTensor's
+    ``pad`` has no plan for every layout in every release)."""
+    if isinstance(x, DTensor):
+        return _conv_on_shards(x, w, b)
     K = w.shape[0]
     out = x * w[K - 1]
     for i in range(K - 1):
         shift = K - 1 - i
         out = out + F.pad(x, (0, 0, shift, 0))[:, :-shift] * w[i]
     return out + b
+
+
+def _conv_on_shards(x: DTensor, w: DTensor, b: DTensor) -> DTensor:
+    x = shard_as(x, 0, 2)
+    mesh = x.device_mesh
+    rows = placed_on(x, "data") or Replicate()
+    chans = isinstance(placed_on(x, "model"), Shard)
+    grad = Partial() if isinstance(rows, Shard) else Replicate()
+
+    def local(t, dim):
+        on = Shard(dim) if chans else Replicate()
+        return t.redistribute(mesh, layout(mesh, Replicate(), on)).to_local(
+            grad_placements=layout(mesh, grad, on))
+    return DTensor.from_local(
+        _causal_conv(x.to_local(), local(w, 1), local(b, 0)), mesh,
+        x.placements, run_check=False)
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -78,6 +101,8 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int,
 
     Returns (y [b,s,h,p], final_state [b,h,p,n]).
     """
+    if isinstance(x, DTensor):
+        return _ssd_on_shards(x, dt, A, B, C, chunk, initial_state, impl)
     if impl == "pallas":
         return kops.ssd_scan(x, dt, A, B, C, chunk, initial_state)
     b, s, h, p = x.shape
@@ -125,10 +150,75 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int,
     return y, carry
 
 
+def _ssd_on_shards(x, dt, A, B, C, chunk, initial_state, impl):
+    """:func:`ssd_scan_ref` on a device mesh: the scan is independent per
+    batch row and head, so each rank scans its own rows and heads (heads
+    over ``model`` where they, and the B / C groups, divide it; B / C
+    replicated there for one group) and the results are its shards.
+    Left to DTensor's propagation the scan's batched products plan
+    redistributions for minutes on a three-dim mesh."""
+    mesh = x.device_mesh
+    n = model_extent(mesh)
+    g = B.shape[2]
+    heads = x.shape[2] % n == 0 and (g == 1 or g % n == 0)
+    rows = x.shape[0] % batch_extent(mesh) == 0
+    rep = Replicate()
+    b_pl = Shard(0) if rows else rep
+
+    def on(dim):
+        return Shard(dim) if heads and dim is not None else rep
+
+    def local(t, pl, grad):
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+    bc = 2 if g > 1 else None
+    xl, dtl = (local(t, layout(mesh, b_pl, on(2)), layout(mesh, b_pl, on(2)))
+               for t in (x, dt))
+    Al = local(A, layout(mesh, rep, on(0)),
+               layout(mesh, Partial() if rows else rep, on(0)))
+    Bl, Cl = (local(t, layout(mesh, b_pl, on(bc)),
+                    layout(mesh, b_pl, on(bc) if bc or not heads
+                           else Partial()))
+              for t in (B, C))
+    y, state = ssd_scan_ref(xl, dtl, Al, Bl, Cl, chunk, initial_state, impl)
+    return (DTensor.from_local(y, mesh, layout(mesh, b_pl, on(2)),
+                               run_check=False),
+            DTensor.from_local(state, mesh, layout(mesh, b_pl, on(1)),
+                               run_check=False))
+
+
+def _state_step(st, dA, dt, xh, Bh, Ch):
+    """One token's recurrence, per batch row and head: st [B,H,P,N] decayed
+    by dA [B,H] plus dt [B,H] × xh [B,H,P] ⊗ Bh [B,H,N]; returns (the new
+    state, its read-out by Ch [B,H,N]).  On a device mesh each rank steps
+    its own rows and heads (heads over ``model`` where they divide it)."""
+    if isinstance(st, DTensor):
+        mesh = st.device_mesh
+        head = 1 if st.shape[1] % model_extent(mesh) == 0 else None
+        args = [shard_as(t, 0, head) for t in (st, dA, dt, xh, Bh, Ch)]
+        pl = args[0].placements
+        new, y = _state_step(*(t.to_local() for t in args))
+        return (DTensor.from_local(new, mesh, pl, run_check=False),
+                DTensor.from_local(y, mesh, pl, run_check=False))
+    st = st * dA[:, :, None, None] + torch.einsum("bh,bhp,bhn->bhpn", dt, xh,
+                                                  Bh)
+    return st, torch.einsum("bhpn,bhn->bhp", st, Ch)
+
+
+def _heads_ready(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """On a device mesh, ``t [..., heads * head_dim]`` sharded over
+    ``model`` on its last dim only where the heads divide it, so that the
+    view to ``[..., heads, head_dim]`` never splits a head; batch-sharded.
+    Plain tensors pass through."""
+    if not isinstance(t, DTensor):
+        return t
+    return shard_as(t, 0, t.dim() - 1 if heads % model_extent(t.device_mesh)
+                    == 0 else None)
+
+
 def _projections(p: Dict, h: torch.Tensor):
-    return (torch.einsum("bsd,de->bse", h, p["in_x"]),
-            torch.einsum("bsd,de->bse", h, p["in_B"]),
-            torch.einsum("bsd,de->bse", h, p["in_C"]))
+    return (mesh_einsum("bsd,de->bse", h, p["in_x"]),
+            mesh_einsum("bsd,de->bse", h, p["in_B"]),
+            mesh_einsum("bsd,de->bse", h, p["in_C"]))
 
 
 def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
@@ -141,16 +231,16 @@ def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
     P = s.head_dim
 
     h = rms_norm(x_in, p["norm"], cfg.norm_eps)
-    z = torch.einsum("bsd,de->bse", h, p["in_z"])
+    z = mesh_einsum("bsd,de->bse", h, p["in_z"])
     xp_pre, Bp_pre, Cp_pre = _projections(p, h)
-    dt = torch.einsum("bsd,de->bse", h, p["in_dt"])
+    dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])
 
     xp = F.silu(_causal_conv(xp_pre, p["conv_x"], p["conv_bias_x"]))
     Bp = F.silu(_causal_conv(Bp_pre, p["conv_B"], p["conv_bias_B"]))
     Cp = F.silu(_causal_conv(Cp_pre, p["conv_C"], p["conv_bias_C"]))
 
     B, S, _ = x_in.shape
-    xh = xp.reshape(B, S, H, P)
+    xh = _heads_ready(xp, H).reshape(B, S, H, P)
     Bm = Bp.reshape(B, S, s.n_groups, s.d_state)
     Cm = Cp.reshape(B, S, s.n_groups, s.d_state)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
@@ -163,9 +253,11 @@ def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
     y, state = ssd_scan_ref(xh, dt.to(xh.dtype), A.to(xh.dtype), Bm, Cm,
                             chunk, impl=impl)
     y = y + xh * p["D_skip"].to(xh.dtype)[None, None, :, None]
-    y = y.reshape(B, S, d_in)
+    # on a mesh, d_inner over "model" as z is: the gradient then comes back
+    # whole to the heads view (torch 2.11 will not split a sharded dim there)
+    y = shard_as(y.reshape(B, S, d_in), 0, 2)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = shard_batch(mesh_einsum("bse,ed->bsd", y, p["out_proj"]))
     if return_state:
         # the conv state keeps the *pre-activation* projection tail so decode
         # can replay the causal window exactly
@@ -186,18 +278,18 @@ def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig
     GN = s.n_groups * s.d_state
 
     h = rms_norm(x_in, p["norm"], cfg.norm_eps)
-    z = torch.einsum("bsd,de->bse", h, p["in_z"])[:, 0]
+    z = mesh_einsum("bsd,de->bse", h, p["in_z"])[:, 0]
     pre = torch.cat(_projections(p, h), dim=-1)[:, 0]          # [B, d_in+2GN]
-    dt = torch.einsum("bsd,de->bse", h, p["in_dt"])[:, 0]      # [B,H]
+    dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])[:, 0]      # [B,H]
 
     window = torch.cat([cache["conv"], pre[:, None, :]], dim=1)  # [B,K,C]
     w_full = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=-1)
     b_full = torch.cat([p["conv_bias_x"], p["conv_bias_B"],
                         p["conv_bias_C"]], dim=-1)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, w_full) + b_full)
+    conv_out = F.silu(mesh_einsum("bkc,kc->bc", window, w_full) + b_full)
     xp, Bp, Cp = torch.split(conv_out, [d_in, GN, GN], dim=-1)
 
-    xh = xp.reshape(-1, H, P)
+    xh = _heads_ready(xp, H).reshape(-1, H, P)
     rep = H // s.n_groups
     Bh = Bp.reshape(-1, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
     Ch = Cp.reshape(-1, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
@@ -206,14 +298,12 @@ def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A[None, :])                               # [B,H]
 
-    st = cache["ssm"].float()
-    st = st * dA[:, :, None, None] + torch.einsum(
-        "bh,bhp,bhn->bhpn", dt, xh.float(), Bh.float())
-    y = torch.einsum("bhpn,bhn->bhp", st, Ch.float())
+    st, y = _state_step(cache["ssm"].float(), dA, dt, xh.float(),
+                        Bh.float(), Ch.float())
     y = y + xh.float() * p["D_skip"].float()[None, :, None]
     y = y.reshape(-1, d_in).to(x_in.dtype)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
+    out = mesh_einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
     cache["ssm"].copy_(st)
     cache["conv"].copy_(window[:, 1:, :])
     return out, cache

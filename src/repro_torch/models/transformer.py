@@ -26,8 +26,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamDef, checkpointed,
-                                       cross_entropy_loss, mlp_defs,
-                                       rms_norm, scan_layers, split_layers,
+                                       cross_entropy_loss, embed_lookup,
+                                       mesh_einsum, mlp_defs, rms_norm,
+                                       scan_layers, shard_batch, split_layers,
                                        stack_defs, swiglu)
 
 Tree = Any
@@ -101,7 +102,7 @@ def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig):
     else:
         f = swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"])
         aux = 0.0
-    return h + f, aux
+    return shard_batch(h + f), aux
 
 
 def _block(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
@@ -112,7 +113,7 @@ def _block(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
         a, kv = attn.mla_forward(lp["attn"], x, cfg)
     else:
         a, kv = attn.gqa_forward(lp["attn"], x, cfg, impl=impl)
-    out, aux = _ffn(h + a, lp, cfg)
+    out, aux = _ffn(shard_batch(h + a), lp, cfg)
     return out, kv, aux
 
 
@@ -132,12 +133,13 @@ def _layer_train(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
 def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", h, w)
+    return mesh_einsum("bsd,dv->bsv", h, w)
 
 
 def _embed_tokens(params: Tree, tokens: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+    return embed_lookup(params["embed"], tokens).to(
+        getattr(torch, cfg.compute_dtype))
 
 
 def _embed_inputs(params: Tree, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
@@ -146,7 +148,7 @@ def _embed_inputs(params: Tree, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
     h = _embed_tokens(params, batch["tokens"], cfg)
     if cfg.vlm is not None and "patch_embeds" in batch:
         h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
-    return h
+    return shard_batch(h)
 
 
 # --------------------------------------------------------------------------- #
@@ -186,7 +188,7 @@ def lm_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
         h_in = torch.cat([rms_norm(h[:, :-1], mp["ln_h"], cfg.norm_eps),
                           rms_norm(emb_next[:, 1:], mp["ln_e"], cfg.norm_eps)],
                          dim=-1)
-        h_mtp = torch.einsum("bsd,dk->bsk", h_in, mp["proj"])
+        h_mtp = mesh_einsum("bsd,dk->bsk", h_in, mp["proj"])
         h_mtp, aux_mtp = _layer_train(h_mtp, mp["block"], cfg, impl)
         logits_mtp = _logits(params, h_mtp, cfg)
         loss = loss + 0.3 * cross_entropy_loss(logits_mtp[:, :-1],

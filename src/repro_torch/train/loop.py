@@ -17,16 +17,20 @@ by ``torch.autograd.grad`` over the parameter tree's leaves); around it:
 ``torch.Generator``, so the initial weights are not the reference's (the
 two frameworks' generators differ); ``make_train_step`` takes any
 parameters, so a trajectory can be held against the reference's on
-converted weights.  A ``mesh`` (``launch.mesh``) has its parameter specs
-computed and checked; a mesh of one device keeps whole tensors on the card,
-and one of more devices raises ``NotImplementedError`` (ROADMAP Queue A,
-multi-GPU placement).  Under autograd only ``impl="xla"`` runs: the kernel
-wrappers refuse to be differentiated, as the reference's kernels cannot be.
+converted weights.  A ``mesh`` has its parameter specs computed and
+checked.  A ``launch.mesh.MeshShape`` of one device keeps whole tensors on
+the card; a larger one (over the initialised process group, whose world
+size it must equal) or a ``DeviceMesh`` places the parameters, the AdamW
+state and each batch on it (``distributed.placement``, the reference's
+``jax.device_put``): the same step then runs on ``DTensor``s, gradients are
+redistributed to their parameters' placements, and checkpoints are written
+whole by rank 0.  Every rank calls ``train``.  Under autograd only
+``impl="xla"`` runs: the kernel wrappers refuse to be differentiated, as
+the reference's kernels cannot be.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -34,11 +38,14 @@ import torch
 
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import compression as comp
+from repro_torch.distributed import placement
 from repro_torch.distributed.failure import FailureInjector, StragglerMonitor
 from repro_torch.distributed.sharding import (ShardingRules, check_specs,
                                               params_shardings)
+from repro_torch.launch.mesh import make_device_mesh, mesh_shape
 from repro_torch.models.api import Model, resolve_device
-from repro_torch.models.common import tree_leaves, tree_unflatten
+from repro_torch.models.common import (mesh_scope, tree_leaves,
+                                       tree_unflatten)
 from repro_torch.obs import diag
 from repro_torch.train.optimizer import (AdamWState, adamw_init, adamw_update,
                                          clip_by_global_norm, cosine_schedule)
@@ -64,7 +71,7 @@ def value_and_grad(model: Model, params: Tree, batch: Dict):
     the gradients a tree like ``params`` (zeros for a leaf the loss does not
     read, as ``jax.grad`` gives)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh_scope():
         loss = model.loss(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
@@ -81,6 +88,7 @@ def make_train_step(model: Model, cfg: TrainConfig, compress: bool,
     def train_step(params: Tree, opt: AdamWState, batch: Dict,
                    comp_state: Optional[comp.CompressionState]):
         loss, grads = value_and_grad(model, params, batch)
+        grads = placement.redistribute_like(grads, params)
         with torch.no_grad():
             if compress:
                 grads, comp_state = comp.compressed_gradients(grads,
@@ -91,8 +99,9 @@ def make_train_step(model: Model, cfg: TrainConfig, compress: bool,
             params, opt = adamw_update(params, grads, opt, lr=lr,
                                        weight_decay=cfg.weight_decay,
                                        decay=decay)
-        return params, opt, comp_state, {"loss": loss,
-                                         "grad_norm": gnorm, "lr": lr}
+        return params, opt, comp_state, {
+            "loss": placement.to_plain(loss), "grad_norm": gnorm,
+            "lr": placement.to_plain(lr)}
     return train_step
 
 
@@ -108,40 +117,58 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
     return out
 
 
-def check_mesh(model: Model, mesh, rules: ShardingRules) -> None:
-    """Compute and check the parameter specs on ``mesh``; a mesh of more
-    than one device is not placed yet."""
-    check_specs(params_shardings(model, mesh, rules), model.param_specs(),
-                mesh)
-    n = math.prod(mesh.shape.values())
-    if n > 1:
-        raise NotImplementedError(
-            f"train on a mesh of {n} devices {dict(mesh.shape)}: multi-GPU "
-            f"placement on torch.distributed is not ported yet (ROADMAP "
-            f"Queue A, multi-GPU placement); a mesh of one device keeps "
-            f"whole tensors on the card")
+def check_mesh(model: Model, mesh, rules: ShardingRules):
+    """Compute and check the parameter specs on ``mesh``; return the
+    ``DeviceMesh`` to place on, or None for a ``MeshShape`` of one device
+    (whole tensors, as without a mesh).  A larger ``MeshShape`` becomes a
+    ``DeviceMesh`` over the initialised process group, whose world size
+    must be the mesh's."""
+    shape = mesh_shape(mesh)
+    check_specs(params_shardings(model, shape, rules), model.param_specs(),
+                shape)
+    if mesh is not shape:
+        return mesh
+    if shape.size == 1:
+        return None
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != shape.size:
+        raise ValueError(
+            f"train on a mesh of {shape.size} devices {shape.shape}: the "
+            f"process group has {world} rank(s); start one process a device "
+            f"(torchrun, or init_process_group with world_size={shape.size})")
+    return make_device_mesh(shape, model.device.type)
 
 
 def train(model: Model, pipeline, cfg: TrainConfig, *,
           mesh=None, rules: ShardingRules = ShardingRules(),
           injector: Optional[FailureInjector] = None,
           seed: int = 0, verbose: bool = True,
-          device=None) -> Dict[str, List[float]]:
-    """Run the loop; returns the metric history (one entry per step)."""
+          device=None,
+          final_state: Optional[Dict] = None) -> Dict[str, List[float]]:
+    """Run the loop; returns the metric history (one entry per step).  A
+    ``final_state`` dict receives the last ``"params"`` and ``"opt"`` (as
+    placed), the ``"device_mesh"`` (None without placement) and the seconds
+    of each step run (``"step_s"``)."""
     device = resolve_device(device)
     if model.device.type != device.type:
         raise ValueError(f"the model is on {model.device}, training on "
                          f"{device}: build it with device={str(device)!r}")
-    if mesh is not None:
-        check_mesh(model, mesh, rules)
+    dmesh = check_mesh(model, mesh, rules) if mesh is not None else None
     injector = injector or FailureInjector()
     monitor = StragglerMonitor()
     history: Dict[str, List[float]] = {"loss": [], "grad_norm": [],
                                        "restarts": [], "stragglers": []}
 
+    def place(params, opt):
+        if dmesh is None:
+            return params, opt
+        return (placement.place_params(params, model, dmesh, rules),
+                placement.place_opt(opt, model, dmesh, rules))
+
     def fresh():
         p = model.init(torch.Generator(device=model.device).manual_seed(seed))
-        return p, adamw_init(p)
+        return place(p, adamw_init(p))
 
     # ---- init or restore ------------------------------------------------ #
     params, opt = fresh()
@@ -173,6 +200,8 @@ def train(model: Model, pipeline, cfg: TrainConfig, *,
         try:
             injector.maybe_fail(step)
             batch = batch_to_device(pipeline.next_batch(), model.device)
+            if dmesh is not None:
+                batch = placement.place_batch(batch, dmesh, rules)
             monitor.start()
             params, opt, comp_state, metrics = step_fn(params, opt, batch,
                                                        comp_state)
@@ -206,4 +235,7 @@ def train(model: Model, pipeline, cfg: TrainConfig, *,
                 pipeline.restore(extra.get("pipeline"))
                 step = s
     history["stragglers"] = list(monitor.flagged)
+    if final_state is not None:
+        final_state.update(params=params, opt=opt, device_mesh=dmesh,
+                           step_s=list(monitor.times))
     return history

@@ -13,6 +13,10 @@ leading ``[L]`` axis, so per-layer norms and Mamba2's ``A_log`` /
 per-layer lists, so the caller passes ``decay`` (``Model.decay_mask()``);
 without it a leaf of rank >= 2 is decayed, the literal rule, right only for
 a tree with no stacked subtree.
+
+On a device mesh the leaves are ``DTensor``s: the update is elementwise
+and keeps each leaf's placement, and the global norm reduces over the
+global tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
@@ -33,16 +38,38 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: Tree) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Zero moments shaped (and, for ``DTensor`` parameters, placed) like
+    the parameters; ``step`` a plain scalar."""
+    zeros = lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format)
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def global_sum(terms) -> torch.Tensor:
+    """The sum of scalars, plain or ``DTensor`` (``Partial`` over the mesh
+    dims their tensor was sharded on), as a plain scalar: the
+    ``DTensor`` terms of one placement are reduced by one collective."""
+    plain = [t for t in terms if not isinstance(t, DTensor)]
+    groups = {}
+    for t in terms:
+        if isinstance(t, DTensor):
+            groups.setdefault((t.device_mesh, t.placements), []).append(
+                t.to_local())
+    total = sum(plain)
+    for (mesh, placements), local in groups.items():
+        total = total + DTensor.from_local(
+            torch.stack(local), mesh, placements,
+            run_check=False).full_tensor().sum()
+    return total
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """The L2 norm over every leaf, the global tensors' where leaves are
+    ``DTensor``s (a plain scalar either way)."""
+    return torch.sqrt(global_sum([torch.sum(torch.square(x.float()))
+                                  for x in tree_leaves(tree)]))
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float

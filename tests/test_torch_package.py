@@ -49,7 +49,11 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
             "repro_torch.distributed.checkpoint",
             "repro_torch.distributed.compression",
             "repro_torch.distributed.failure",
-            "repro_torch.distributed.sharding"} <= set(names)
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.placement",
+            "repro_torch.distributed.hoststaged",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -291,8 +291,9 @@ def test_kernel_lowerings_train_only_forward(name, impl):
 # --------------------------------------------------------------------------- #
 def test_train_on_a_mesh_of_one_device_and_refuses_more(tmp_path):
     """A mesh of one device: the specs are computed and checked and the
-    run is the mesh-less one.  A production mesh: ``NotImplementedError``
-    naming the ROADMAP item, before any step."""
+    run is the mesh-less one.  A production mesh without a process group of
+    its size: ``ValueError`` naming the world size, before any step (a mesh
+    that has one is trained in ``test_torch_mesh.py``)."""
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     cfg = smoke_config("qwen2-0.5b")
@@ -304,7 +305,7 @@ def test_train_on_a_mesh_of_one_device_and_refuses_more(tmp_path):
                      device="cpu")
     none = loop.train(model, mk(), tc, verbose=False, device="cpu")
     assert one["loss"] == none["loss"]
-    with pytest.raises(NotImplementedError, match="multi-GPU placement"):
+    with pytest.raises(ValueError, match="process group has 1 rank"):
         loop.train(model, mk(), tc, mesh=make_production_mesh(),
                    verbose=False, device="cpu")
 
