@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90a) and nvcc
 
-Eleven phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
+Twelve phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
 8 four, phase 9 three); any failure ends the run with a non-zero exit code:
 
   1. env               torch / CUDA versions, the card's name and power limit
@@ -41,6 +41,14 @@ Eleven phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
                        cuda against numpy (forced migrations included); the
                        five baselines' SLO fulfilment beside HAF's comes
                        from phase eval's Table III
+  4b'. examples        examples/torch, each script's main() in-process on
+                       the card: quickstart whole (its allocation within
+                       rtol 1e-4, atol capacity*1e-5 of the same call on the
+                       host; results on the card), haf_serving at 300
+                       requests with phase haf's critic (static and HAF
+                       summaries equal to the numpy engine's, P1; a launch a
+                       tick, and one, a run) and train_100m at 6 steps with a
+                       failure at step 3 (restarts == [3])
   4c. eval             the experiment harness: the critic of phase haf saved
                        into a fresh artifact store ($REPRO_ARTIFACTS), then
                        experiments/paper_table3.toml, unchanged, through
@@ -120,7 +128,11 @@ Eleven phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
                        count over the real step on the card, the bound
                        max(FLOPs / 989.4 T, bytes / 3.35 T) against the
                        step's ms; then python -m repro_torch.launch.dryrun on
-                       qwen2-0.5b and mamba2-130m on the 16x16 mesh
+                       qwen2-0.5b and mamba2-130m on the 16x16 mesh, a
+                       subprocess a cell, all started beside phase build (a
+                       cell needs no card and one host core) and collected
+                       before phase kernels, so no timed phase shares the
+                       host with them
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
@@ -152,6 +164,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -201,7 +214,8 @@ from repro_torch.models.api import Model
 from repro_torch.train.loop import (TrainConfig, batch_to_device,
                                     make_train_step, train, value_and_grad)
 from repro_torch.train.optimizer import adamw_init, adamw_update
-from repro_torch.sim import Simulator, make_scenario, workload_for
+from repro_torch.sim import (Simulator, WorkloadConfig, generate_workload,
+                             make_scenario, paper_scenario, workload_for)
 from repro_torch.sim.engine import DeadlineAwareAllocation, StaticPlacement
 from repro_torch.sim.event_core import NumpyBatchedEventCore
 
@@ -462,6 +476,9 @@ def launch_records(events):
     return out
 
 
+PROFILE_TRACES = 3
+
+
 def profiled(fn, parts, iters: int = 20):
     """``({part: device µs}, {part: launches}, dropped)`` per call of
     ``fn``; fails unless each of ``parts`` (a substring of kernel names) is
@@ -470,26 +487,44 @@ def profiled(fn, parts, iters: int = 20):
     launch whose device-side record the trace lacks takes the kernel that
     the same place in the order has in the other calls.  ``dropped`` counts
     those launches; a part's device µs is its mean over its traced records
-    times its launches a call."""
+    times its launches a call.  A trace that lacks the device-side record of
+    one place in the order in every call names no kernel for it (the card's
+    profiler has lost all of a kernel's records in a trace): it is taken
+    again, ``PROFILE_TRACES`` traces at most."""
     fn()
-    _, events = trace(fn, iters)
-    recs = launch_records(events)
-    if not recs or (recs[0] is not None and "spin_kernel" not in recs[0]):
-        raise AssertionError(f"profiled {parts}: the trace does not open "
-                             f"with the spin kernel's launch: {recs[:1]}")
-    recs = recs[1:]
-    if not recs or len(recs) % iters:
-        raise AssertionError(f"profiled {parts}: {len(recs)} launch records "
-                             f"in {iters} calls, not the same number a call")
-    width = len(recs) // iters
-    order = []
-    for j in range(width):
-        names = {recs[i * width + j] for i in range(iters)} - {None}
-        if len(names) != 1:
-            raise AssertionError(f"profiled {parts}: launch {j} of a call is "
-                                 f"of kernels {sorted(names)} over {iters} "
-                                 "calls, not of one")
-        order.append(names.pop())
+    for _ in range(PROFILE_TRACES):
+        _, events = trace(fn, iters)
+        recs = launch_records(events)
+        if not recs or (recs[0] is not None
+                        and "spin_kernel" not in recs[0]):
+            raise AssertionError(f"profiled {parts}: the trace does not "
+                                 f"open with the spin kernel's launch: "
+                                 f"{recs[:1]}")
+        recs = recs[1:]
+        if not recs or len(recs) % iters:
+            raise AssertionError(f"profiled {parts}: {len(recs)} launch "
+                                 f"records in {iters} calls, not the same "
+                                 "number a call")
+        width = len(recs) // iters
+        order = []
+        for j in range(width):
+            names = {recs[i * width + j] for i in range(iters)} - {None}
+            if len(names) > 1:
+                raise AssertionError(f"profiled {parts}: launch {j} of a "
+                                     f"call is of kernels {sorted(names)} "
+                                     f"over {iters} calls, not of one")
+            if not names:
+                print(f"profiled {parts}: no device record of launch {j} "
+                      f"in {iters} calls; tracing again", file=sys.stderr,
+                      flush=True)
+                break
+            order.append(names.pop())
+        else:
+            break
+    else:
+        raise AssertionError(f"profiled {parts}: a launch of each call has "
+                             f"no device record in {PROFILE_TRACES} traces of "
+                             f"{iters} calls")
     launches = {part: sum(part in k for k in order) for part in parts}
     if any(n != 1 for n in launches.values()):
         raise AssertionError(f"profiled launches per call of {parts}: "
@@ -1422,6 +1457,118 @@ def phase_haf(args):
                      "mean_overall_fulfillment": float(np.mean(
                          [r.summary()["overall"] for r in churn_dev]))})
     return launches, critic
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b': the port's examples, each main() in-process on the card
+# --------------------------------------------------------------------------- #
+EXAMPLES = os.path.join(HERE, "examples", "torch")
+EXAMPLE_REQUESTS = 300       # haf_serving's stream (3000 in the script)
+EXAMPLE_TRAIN = ["--steps", "6", "--fail-at", "3"]   # 300 steps in the script
+
+
+def load_example(name: str) -> types.ModuleType:
+    path = os.path.join(EXAMPLES, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_summary(a: dict, b: dict) -> bool:
+    """Equal summaries; an absent class's NaN equals NaN."""
+    nan = lambda v: isinstance(v, float) and math.isnan(v)
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (nan(a[k]) and nan(b[k])) for k in a)
+
+
+def quiet_main(mod, argv):
+    """``mod.main(argv)`` with its prints kept out of this script's output,
+    and the card's seconds for it."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_examples(critic):
+    """examples/torch on the card: quickstart whole (its allocation against
+    the same call on the host), haf_serving with phase haf's critic (static
+    and HAF summaries against the numpy engine, P1; its event_step launches
+    counted) and train_100m at a few steps with an injected failure."""
+    t_phase = time.perf_counter()
+    qs_mod = load_example("quickstart")
+    qs, qs_s = quiet_main(qs_mod, [])
+    host = qs_mod.allocate("cpu")
+    on_card = [qs["alloc"], qs["floored"], qs["loss"], qs["grad_norm"],
+               qs["logits"]]
+    if any(t.device.type != "cuda" for t in on_card):
+        raise AssertionError("quickstart: a result is not on the card")
+    alloc_err = float((qs["alloc"].cpu() - host.alloc).abs().max())
+    torch.testing.assert_close(qs["alloc"].cpu(), host.alloc, rtol=1e-4,
+                               atol=qs_mod.CAPACITY * 1e-5)
+    if not (torch.equal(qs["floored"].cpu(), host.floored)
+            and bool(qs["feasible"]) == bool(host.feasible)
+            and bool(torch.isfinite(qs["loss"]))
+            and bool(torch.isfinite(qs["logits"]).all())):
+        raise AssertionError("quickstart: floors, feasibility or the model "
+                             "step disagree")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        path = os.path.join(work, "critic.json")
+        critic.save(path)
+        ops.reset_launch_counts()
+        hs, hs_s = quiet_main(load_example("haf_serving"),
+                              ["--requests", str(EXAMPLE_REQUESTS),
+                               "--critic", path])
+        launches = ops.launch_counts()["event_step"]
+    finally:
+        shutil.rmtree(work)
+    sc = paper_scenario()
+    reqs, _ = generate_workload(
+        WorkloadConfig(rho=1.0, n_ai_requests=EXAMPLE_REQUESTS, seed=0),
+        sc["work_models"])
+    host_sim = Simulator(sc, epoch_interval=5.0, engine="numpy")
+    static = host_sim.run(reqs, StaticPlacement(), DeadlineAwareAllocation())
+    haf = host_sim.run(reqs, HAFPlacement(make_agent("qwen3-32b-sim"),
+                                          critic=critic),
+                       DeadlineAwareAllocation())
+    if hs["critic_trained"] or hs["critic"] != critic.fingerprint():
+        raise AssertionError("haf_serving did not read phase haf's critic")
+    if not (same_summary(hs["static"], static.summary())
+            and same_summary(hs["haf"], haf.summary())):
+        raise AssertionError(f"haf_serving on cuda != numpy:\n{hs['static']}"
+                             f"\n{static.summary()}\n{hs['haf']}\n"
+                             f"{haf.summary()}")
+    if hs["events"] != [static.n_events, haf.n_events] \
+            or launches != sum(hs["events"]) + 2:
+        raise AssertionError(f"haf_serving: {launches} event_step launches "
+                             f"for ticks {hs['events']} (want a launch a "
+                             "tick, and one, a run)")
+
+    tr, tr_s = quiet_main(load_example("train_100m"), EXAMPLE_TRAIN)
+    if tr["restarts"] != [3] or not all(math.isfinite(x)
+                                        for x in tr["loss"]) \
+            or any(p.device.type != "cuda" for p in tr["params"]):
+        raise AssertionError(f"train_100m: restarts {tr['restarts']}, "
+                             f"losses {tr['loss']}")
+    emit("examples", seconds=time.perf_counter() - t_phase,
+         quickstart={"seconds": qs_s, "alloc_max_abs_diff_vs_host":
+                     alloc_err, "decision": qs["decision"],
+                     "loss": float(qs["loss"])},
+         haf_serving={"seconds": hs_s, "requests": EXAMPLE_REQUESTS,
+                      "ticks": hs["events"], "event_step_launches": launches,
+                      "static_overall": hs["static"]["overall"],
+                      "haf_overall": hs["haf"]["overall"],
+                      "migrations": len(hs["migrations"]),
+                      "summaries_equal_numpy": True},
+         train_100m={"seconds": tr_s, "argv": EXAMPLE_TRAIN,
+                     "params_m": tr["params_m"], "restarts": tr["restarts"],
+                     "loss_first": tr["loss"][0], "loss_last": tr["loss"][-1]},
+         nvidia_smi=nvidia_smi_line())
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -2886,14 +3033,45 @@ def spec_report_of_mesh():
 # --------------------------------------------------------------------------- #
 # phase dryrun: the dry-run's count against the card, then the sweep
 # --------------------------------------------------------------------------- #
-DRYRUN_SWEEP = ("--mesh", "single", "--arch", "qwen2-0.5b,mamba2-130m")
+DRYRUN_MESH, DRYRUN_ARCHS = "single", ("qwen2-0.5b", "mamba2-130m")
 DRYRUN_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def dryrun_sweep():
+    """The dry-run's CLI on a subset of cells, one subprocess a cell, all
+    started together: a cell needs no card and one host core.  Yields the
+    ``(process, out dir)`` of each and the start on the wall clock; on exit
+    every process still running is killed and the out dirs removed."""
+    from repro_torch.configs import cells_for
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.time()
+    procs = []
+    try:
+        for arch in DRYRUN_ARCHS:
+            for cell in cells_for(arch):
+                out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+                with open(os.path.join(out, "stderr.txt"), "w") as err:
+                    procs.append((subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.launch.dryrun",
+                         "--mesh", DRYRUN_MESH, "--arch", arch, "--cell",
+                         cell.name, "--out", out], env=env,
+                        stdout=subprocess.DEVNULL, stderr=err), out))
+        yield procs, t0
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(out, ignore_errors=True)
 
 
 def phase_dryrun():
     """The yardstick: qwen2-0.5b at phase train's shape traced on a 1×1
     fake mesh and counted over the real step on the card (FLOPs and
-    argument bytes equal); then the dry-run's CLI on a subset of cells."""
+    argument bytes equal).  The dry-run's CLI on a subset of cells runs
+    beside the kernels' build (:func:`dryrun_sweep`)."""
     from repro_torch.configs import ShapeCell
     from repro_torch.launch import dryrun, hlo_analysis
     from repro_torch.launch.mesh import MeshShape
@@ -2946,39 +3124,50 @@ def phase_dryrun():
                              f"the card's {card_args}")
     del params, opt, model
     torch.cuda.empty_cache()
-
-    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    try:
-        t0 = time.perf_counter()
-        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_SWEEP,
-             "--out", out], env=env, capture_output=True, text=True,
-            timeout=DRYRUN_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise AssertionError(
-                f"dry-run sweep failed:\n{proc.stderr[-3000:]}")
-        sweep_s = time.perf_counter() - t0
-        cells = []
-        for f in sorted(pathlib.Path(out).glob("dryrun_*.json")):
-            for r in json.loads(f.read_text()):
-                if "error" in r:
-                    raise AssertionError(f"dry-run {r['arch']} {r['cell']}: "
-                                         f"{r['error']}\n{r['traceback']}")
-                rf = r["roofline"]
-                cells.append({
-                    "arch": r["arch"], "cell": r["cell"], "mesh": r["mesh"],
-                    "trace_s": r["compile_s"],
-                    "gib_a_device": r["memory"]["total_per_device"] / 2**30,
-                    "t_compute_ms": rf["t_compute"] * 1e3,
-                    "t_memory_ms": rf["t_memory"] * 1e3,
-                    "t_collective_ms": rf["t_collective"] * 1e3,
-                    "bottleneck": rf["bottleneck"]})
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
-    emit("dryrun_sweep", args=list(DRYRUN_SWEEP), seconds=sweep_s,
-         cells=cells)
     emit("dryrun_summary", seconds=time.perf_counter() - t_phase)
+
+
+def collect_dryrun_sweep(running) -> None:
+    """Wait for :func:`dryrun_sweep`'s subprocesses and report their cells;
+    a process that fails or a cell in error fails the run."""
+    procs, t0 = running
+    t_wait = time.perf_counter()
+    records = []
+    for proc, out in procs:
+        try:
+            proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.time() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dry-run sweep: a cell ran past "
+                                 f"{DRYRUN_TIMEOUT_S} s") from None
+        if proc.returncode != 0:
+            stderr = pathlib.Path(out, "stderr.txt").read_text()
+            raise AssertionError(f"dry-run sweep failed:\n{stderr[-3000:]}")
+        records += sorted(pathlib.Path(out).glob("dryrun_*.json"))
+    sweep_s = max(f.stat().st_mtime for f in records) - t0
+    cells = []
+    for f in records:
+        for r in json.loads(f.read_text()):
+            if "error" in r:
+                raise AssertionError(f"dry-run {r['arch']} {r['cell']}: "
+                                     f"{r['error']}\n{r['traceback']}")
+            rf = r["roofline"]
+            cells.append({
+                "arch": r["arch"], "cell": r["cell"], "mesh": r["mesh"],
+                "torch": r["torch"], "trace_s": r["compile_s"],
+                "gib_a_device": r["memory"]["total_per_device"] / 2**30,
+                "t_compute_ms": rf["t_compute"] * 1e3,
+                "t_memory_ms": rf["t_memory"] * 1e3,
+                "t_collective_ms": rf["t_collective"] * 1e3,
+                "coll_bytes": rf["coll_breakdown"],
+                "bottleneck": rf["bottleneck"]})
+    emit("dryrun_sweep", mesh=DRYRUN_MESH, archs=list(DRYRUN_ARCHS),
+         processes=len(procs), seconds=sweep_s, beside="build",
+         waited_s=time.perf_counter() - t_wait, cells=cells)
+
+
+def sweep_alone() -> None:
+    with dryrun_sweep() as cells:
+        collect_dryrun_sweep(cells)
 
 
 def main() -> None:
@@ -3027,29 +3216,38 @@ def main() -> None:
             _build.build_all()
             _build.load()
         {"train": phase_train, "mesh": phase_mesh,
-         "dryrun": phase_dryrun}[args.only]()
+         "dryrun": lambda: (sweep_alone(), phase_dryrun())}[args.only]()
         print(smi, flush=True)
         return
 
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    _build.load()
-    emit("build", seconds=time.perf_counter() - t0, nvcc=_build.find_nvcc(),
-         flags={name: " ".join(_build.nvcc_flags(name)) for name in libs},
-         libraries=sorted(libs),
-         build_dir=os.path.relpath(_build.BUILD_DIR, HERE))
-    phase_build(libs)
+    t_run = t0 = time.perf_counter()
+    # the dry-run sweep needs no card: it runs beside the build, and every
+    # timed phase starts after it
+    with dryrun_sweep() as cells:
+        libs = _build.build_all()
+        _build.load()
+        emit("build", seconds=time.perf_counter() - t0,
+             nvcc=_build.find_nvcc(),
+             flags={name: " ".join(_build.nvcc_flags(name))
+                    for name in libs},
+             libraries=sorted(libs),
+             build_dir=os.path.relpath(_build.BUILD_DIR, HERE),
+             beside="the dry-run sweep")
+        phase_build(libs)
+        collect_dryrun_sweep(cells)
 
     event, alloc = phase_kernels(args)
     model_kernels = phase_model_kernels()
     event_launches = phase_run_batch(args)
     haf_launches, critic = phase_haf(args)
+    example_launches = phase_examples(critic)
     eval_launches, serve_launches = phase_eval(critic)
     alloc_launches = phase_allocate_cluster(args)
     served = phase_serve()
     phase_train()
     mesh_launches = phase_mesh()
     phase_dryrun()
+    emit("run", seconds=time.perf_counter() - t_run)
 
     def row(name, rec, launches, replaces, tolerance, path):
         lib_ms = rec.get("library_ms")
@@ -3066,18 +3264,20 @@ def main() -> None:
     mk = model_kernels
     print(json.dumps({"kernels": [
         dict(row("event_step", event,
-                 event_launches + haf_launches + eval_launches
-                 + serve_launches,
+                 event_launches + haf_launches + example_launches
+                 + eval_launches + serve_launches,
                  "src/repro/kernels/event_step.py:34",
                  "bit-for-bit (torch.equal on all five outputs)",
                  "Simulator.run_batch, one launch per tick: HAF-Static on "
                  "dense-urban (phase run_batch), HAF critic-gated on paper "
                  "(phase haf), the sweep harness's HAF group of "
-                 "paper_table3 (phase eval, eval.sweep.run_batch_jobs) and "
-                 "the serving launcher's solo run (phase eval, a "
-                 "one-replica block)"),
+                 "paper_table3 (phase eval, eval.sweep.run_batch_jobs), "
+                 "examples/torch/haf_serving.py's static and HAF runs "
+                 "(phase examples, one-replica blocks) and the serving "
+                 "launcher's solo run (phase eval, a one-replica block)"),
              launches_by_path={"run_batch": event_launches,
                                "haf": haf_launches,
+                               "examples": example_launches,
                                "eval": eval_launches,
                                "serve": serve_launches}),
         dict(row("alloc_active_set", alloc, alloc_launches,

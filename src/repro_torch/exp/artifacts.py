@@ -90,8 +90,8 @@ def write_manifest(path, *, kind: str, fingerprint: str,
         "artifact": path.name,
         "name": path.name[:-len(path.suffix)] if path.suffix else path.name,
         "fingerprint": fingerprint,
-        # creation stamp: metadata only, never read back into any result
-        # or resume key
+        # repro: allow(wall-clock): manifest creation stamp — metadata
+        # only, never read back into any result or resume key
         "created_unix_s": round(time.time(), 3),
     }
     if families is not None:

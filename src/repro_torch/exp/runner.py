@@ -67,15 +67,15 @@ def run_experiment(spec: ExperimentSpec, *, resume: bool = True,
         diag(f"# resume: {len(prior)}/{len(jobs)} rows reused from {out} "
              "(--no-resume recomputes)")
 
-    t0 = time.time()
+    t0 = time.time()  # repro: allow(wall-clock): provenance wall_s stamp
     new_rows: List[Optional[Dict]] = []
     if pending:
         new_rows = run_sweep(sweep, verbose=verbose, jobs=pending)
     it = iter(new_rows)
     rows: List[Optional[Dict]] = [prior[job_key(j)] if job_key(j) in prior
                                   else next(it) for j in jobs]
-    # report metadata: wall_s is provenance, not a result column, and
-    # stays out of every hash
+    # repro: allow(wall-clock): report metadata — wall_s is provenance,
+    # not a result column, and stays out of every hash
     prov["wall_s"] = round(time.time() - t0, 3)
 
     report = build_report(sweep, rows, provenance=prov)

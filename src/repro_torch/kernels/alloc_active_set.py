@@ -10,6 +10,9 @@ bulk asynchronous copies); longer rows take one thread block each
 (:func:`alloc_active_set_geometry` chooses).  The plain version is
 :func:`repro_torch.kernels.ref.alloc_active_set_ref`.
 """
+# repro: allow-file(float-dtype): this kernel is f32 BY DESIGN — it is
+# held to the f64 host solver by tolerance (rtol=1e-4, atol=cap*1e-5),
+# not bit-for-bit, and sits on no f64 event-schedule path
 from __future__ import annotations
 
 import functools

@@ -207,6 +207,8 @@ def ssd_scan_sequential_ref(x: torch.Tensor, dt: torch.Tensor,
     Bh = B.repeat_interleave(rep, dim=2).float()            # [b,s,h,n]
     Ch = C.repeat_interleave(rep, dim=2).float()
     xf, dtf, Af = x.float(), dt.float(), A.float()
+    # repro: allow(float-dtype): the SSD oracle carries its state in f32,
+    # as the kernel does; it is on no f64 event-schedule path
     state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
              if initial_state is None else initial_state.float())
     ys = []
@@ -259,6 +261,7 @@ def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         hi = t.bfloat16().float()
         return hi + (t - hi).bfloat16().float() if bf16_pairs else hi
 
+    # repro: allow(float-dtype): the chunked SSD oracle's f32 state
     state = torch.zeros((b, h, p, Bh.shape[-1]), dtype=torch.float32,
                         device=x.device)
     ys = []
@@ -275,10 +278,12 @@ def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         tri = torch.ones(csh.shape[-1], csh.shape[-1], dtype=torch.bool,
                          device=x.device).tril()
         decay = torch.exp(torch.where(
-            tri, csh[..., :, None] - csh[..., None, :], torch.zeros(())))
+            tri, csh[..., :, None] - csh[..., None, :],
+            torch.zeros(())))  # repro: allow(float-dtype): f32 SSD oracle
         scores = torch.einsum("bthn,bshn->bhts", Cs, Bs)
         M = pair(torch.where(tri, scores * decay * dts.permute(0, 2, 1)[
-            :, :, None, :], torch.zeros(())))
+            :, :, None, :],
+            torch.zeros(())))  # repro: allow(float-dtype): f32 SSD oracle
         y_in = torch.einsum("bhts,bshp->bthp", M, xs)
         y_off = torch.einsum("bthn,bhpn->bthp", Cs, pair(state))
         ys.append(y_in + y_off * torch.exp(cs)[..., None])

@@ -12,6 +12,12 @@ card is needed), counts the local ops of one rank
 resumes where it stopped).  A cell that fails records its error and the
 sweep goes on.
 
+A ``Shard(i) -> Shard(j)`` move runs on the fake group as the all-to-all
+that a CUDA mesh runs (:func:`_alltoall_as_planned`), never as the
+all-gather of the whole tensor that DTensor falls back to on a CPU group, so
+every torch version counts it alike; each record names the torch version
+that traced it (``torch``).
+
 ``compile_s`` holds the trace's seconds.  Eager tracing sees every layer,
 so ``unrolled`` is always true and ``--no-unroll`` changes nothing.  A fake
 group cannot share a process with a real one: the CLI refuses to start
@@ -36,6 +42,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 from torch.utils._pytree import tree_leaves
 
@@ -54,20 +61,38 @@ from repro_torch.train.optimizer import adamw_init
 ARTIFACTS = pathlib.Path(__file__).resolve().parents[3] / "artifacts"
 
 
+def _alltoall_as_planned(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's ``Shard(gather_dim) -> Shard(shard_dim)`` move on one mesh
+    dim as the all-to-all that NCCL runs: piece ``k`` of ``shard_dim`` goes
+    to rank ``k``, and the pieces received are joined along ``gather_dim``.
+    (DTensor pads ``shard_dim`` to a multiple of the group first.)"""
+    n = mesh.size(mesh_dim)
+    pieces = torch.stack(input.chunk(n, dim=shard_dim))
+    got = funcol.all_to_all_single(pieces, None, None, (mesh, mesh_dim))
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return torch.cat(got.unbind(0), dim=gather_dim)
+
+
 @contextlib.contextmanager
 def fake_device_mesh(mesh: MeshShape):
     """A ``DeviceMesh`` of ``mesh``'s shape on a fake process group of
     ``mesh.size`` ranks in this process (this is rank 0; collectives return
-    at once).  The group is destroyed on exit."""
+    at once).  Inside, a ``Shard -> Shard`` move is the all-to-all
+    :func:`_alltoall_as_planned`.  The group is destroyed on exit."""
+    from torch.distributed.tensor import placement_types
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("the dry-run makes a fake process group and "
                            "cannot share a process with an initialised one")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=mesh.size)
+    cpu_route = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = _alltoall_as_planned
     try:
         yield make_device_mesh(mesh, "cpu")
     finally:
+        placement_types.shard_dim_alltoall = cpu_route
         dist.destroy_process_group()
 
 
@@ -102,16 +127,20 @@ def meta_inputs(model: Model, cell: ShapeCell) -> Dict[str, torch.Tensor]:
 def lower_cell(arch: str, cell: ShapeCell, mesh, *,
                rules: ShardingRules = ShardingRules(),
                remat: str = "dots", unroll: bool = True,
-               cfg_overrides: Optional[Dict] = None) -> Dict:
+               cfg_overrides: Optional[Dict] = None,
+               plans: Optional[list] = None) -> Dict:
     """Trace one (arch, cell, mesh); return the dry-run record.  ``mesh``
     is a ``DeviceMesh`` (on a fake group, :func:`fake_device_mesh`) or a
     ``MeshShape`` (a fake group is made for this cell).  ``unroll`` is
     accepted for the reference's signature: eager tracing always sees
-    every layer.  ``cfg_overrides`` replaces config fields."""
+    every layer.  ``cfg_overrides`` replaces config fields.  A ``plans``
+    list receives the step's redistributions
+    (``RedistributionLog.moves``)."""
     if isinstance(mesh, MeshShape):
         with fake_device_mesh(mesh) as dm:
             return lower_cell(arch, cell, dm, rules=rules, remat=remat,
-                              unroll=unroll, cfg_overrides=cfg_overrides)
+                              unroll=unroll, cfg_overrides=cfg_overrides,
+                              plans=plans)
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -145,8 +174,12 @@ def lower_cell(arch: str, cell: ShapeCell, mesh, *,
 
     model_flops = hlo_analysis.analytic_model_flops(
         cfg, cell.kind, cell.seq_len, cell.global_batch)
-    with hlo_analysis.OpCounter() as counter:
+    counter = hlo_analysis.OpCounter()
+    log = hlo_analysis.RedistributionLog(counter)
+    with counter, log if plans is not None else contextlib.nullcontext():
         out = run()
+    if plans is not None:
+        plans.extend(log.moves)
     ins, outs = _locals(args), _locals(out)
     out_bytes = _bytes(outs)
     # outputs written in place into an argument (a decode cache)
@@ -173,6 +206,7 @@ def lower_cell(arch: str, cell: ShapeCell, mesh, *,
         "unrolled": True,
         "memory": mem,
         "roofline": roof.to_dict(),
+        "torch": torch.__version__,
     }
 
 

@@ -12,12 +12,16 @@ reference's analysis reads the per-device module after SPMD partitioning:
   counted; nothing is fused, so this is an upper bound where XLA's "bytes
   accessed" is after fusion);
 - collective bytes by the reference's five kinds, from the
-  ``_c10d_functional`` ops that DTensor issues (output bytes, as the
-  reference counts them), each priced at the rate of its group: NVLink
+  ``_c10d_functional`` ops that DTensor issues and the
+  ``_dtensor::shard_dim_alltoall`` of a ``Shard(i) -> Shard(j)`` move on a
+  CUDA mesh (output bytes, as the reference counts them), each priced at the
+  rate of its group: NVLink
   within a node of :data:`NODE` cards, InfiniBand when the group spans
   nodes (ranks ``r`` and ``r'`` share a node where ``r // NODE == r' //
   NODE``);
-- the peak of live local bytes made during the step (:func:`memory_stats`).
+- the peak of live local bytes made during the step (:func:`memory_stats`);
+- with :class:`RedistributionLog`, each DTensor redistribution and the
+  collective bytes it became (which moves a torch version plans, and how).
 
 A ``DTensor``-level op is not counted: the mode defers it to DTensor
 (``NotImplemented``) and sees the local ops and collectives it runs; the
@@ -61,8 +65,9 @@ _KINDS = {
     "broadcast": "collective-permute",
     "isend": "collective-permute",
     "irecv": "collective-permute",
+    "shard_dim_alltoall": "all-to-all",      # _dtensor, on a CUDA mesh
 }
-_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd")
+_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd", "_dtensor")
 
 
 @dataclasses.dataclass
@@ -222,6 +227,52 @@ class OpCounter(TorchDispatchMode):
                         coll_breakdown=dict(self.coll),
                         out_bytes=float(out_bytes), model_flops=model_flops,
                         coll_seconds=self.coll_seconds)
+
+
+class RedistributionLog:
+    """Every DTensor redistribution run under it (``with
+    RedistributionLog(counter) as log``): its source and target placements,
+    the global shape, the dtype, and the collective bytes by kind that
+    ``counter``, an active :class:`OpCounter`, counted during it.  This
+    shows which collective each move of a traced step became, on the
+    installed torch version."""
+
+    _MODULES = ("_redistribute", "_dispatch", "_api")
+
+    def __init__(self, counter: OpCounter):
+        self.counter = counter
+        self.moves = []
+        self._patched = []
+
+    def __enter__(self) -> "RedistributionLog":
+        import importlib
+        from torch.distributed.tensor import _redistribute
+        self._orig = _redistribute.redistribute_local_tensor
+        for name in self._MODULES:
+            mod = importlib.import_module(f"torch.distributed.tensor.{name}")
+            if getattr(mod, "redistribute_local_tensor", None) is self._orig:
+                mod.redistribute_local_tensor = self._logged
+                self._patched.append(mod)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod in self._patched:
+            mod.redistribute_local_tensor = self._orig
+        self._patched = []
+
+    def _logged(self, local_tensor, current_spec, target_spec, **kwargs):
+        before = dict(self.counter.coll)
+        out = self._orig(local_tensor, current_spec, target_spec, **kwargs)
+        self.moves.append({
+            "src": [str(p) for p in current_spec.placements],
+            "dst": [str(p) for p in target_spec.placements],
+            "mesh": list(current_spec.mesh.shape),
+            "shape": list(current_spec.shape),
+            "dtype": str(local_tensor.dtype).replace("torch.", ""),
+            "coll": {k: self.counter.coll[k] - v for k, v in before.items()
+                     if self.counter.coll[k] != v},
+        })
+        return out
 
 
 def analytic_model_flops(cfg, kind: str, seq_len: int, global_batch: int

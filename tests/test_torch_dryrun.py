@@ -14,6 +14,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ ONE = MeshShape(("data", "model"), (1, 1))
 SMALL = ShapeCell("small", 64, 4, "train")
 REF_RECORD_KEYS = {"arch", "cell", "kind", "mesh", "n_devices", "seq_len",
                    "global_batch", "params", "active_params", "compile_s",
-                   "remat", "unrolled", "memory", "roofline"}
+                   "remat", "unrolled", "memory", "roofline", "torch"}
 FLOPS_REL = 0.05
 
 
@@ -133,7 +134,8 @@ def test_one_device_flops_near_reference(one_device_records, arch):
 
 def test_record_keys_are_the_references(one_device_records):
     mine, theirs = one_device_records["qwen2-0.5b", "dots"]
-    assert set(mine) == set(theirs) == REF_RECORD_KEYS
+    assert set(mine) == set(theirs) | {"torch"} == REF_RECORD_KEYS
+    assert mine["torch"] == torch.__version__
     assert set(mine["memory"]) == set(theirs["memory"])
     assert set(mine["roofline"]) == set(theirs["roofline"])
     assert mine["unrolled"] is True and mine["mesh"] == "1x1"
@@ -230,3 +232,162 @@ def test_flash_attention_refuses_a_split_sequence():
         with pytest.raises(ValueError, match="agree"):
             ops.flash_attention(place(q, ok), place(k, [Replicate()] * 2),
                                 place(v, ok))
+
+
+# --------------------------------------------------------------------- #
+# collectives counted from the plan, alike on every torch version (F8)
+# --------------------------------------------------------------------- #
+_ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4, "float64": 8,
+             "int32": 4, "int64": 8, "bool": 1}
+PLAN_CELLS = [(arch, cell) for arch in ("zamba2-2.7b", "whisper-medium")
+              for cell in ("train_4k", "prefill_32k", "decode_32k")]
+
+
+def _cut(arch):
+    """Smoke depth at full width: one attention block of zamba2, two
+    encoder and two decoder layers of whisper."""
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        return {"num_layers": cfg.hybrid.attn_every}
+    return {"num_layers": 2,
+            "encdec": dataclasses.replace(cfg.encdec, encoder_layers=2)}
+
+
+def _placement(text):
+    m = re.fullmatch(r"S\((\d+)\)", text)
+    return ("S", int(m.group(1))) if m else \
+        ("P",) if text.startswith("P(") else ("R",)
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _plan(src, dst, shape, mesh):
+    """DTensor's greedy plan for ``src -> dst``, one step a mesh dim:
+    inner mesh dims first, where a nested shard that the target does not
+    keep is replicated, then outer to inner.  Each step carries the tensor's
+    logical shape at its mesh dim and the placements before it."""
+    logical = [list(shape)]
+    for i, p in enumerate(src[:-1]):
+        nxt = list(logical[i])
+        if p[0] == "S":
+            nxt[p[1]] = _ceil(nxt[p[1]], mesh[i])
+        logical.append(nxt)
+    cur, steps = list(src), []
+    if any(p[0] == "S" for p in src):
+        for i in reversed(range(len(cur))):
+            tgt = dst[i]
+            if tgt[0] == "S" and [k for k in range(i) if cur[k] == tgt] \
+                    != [k for k in range(i) if dst[k] == tgt]:
+                tgt = ("R",)
+            if cur[i] != tgt:
+                steps.append((i, cur[i], tgt, logical[i], list(cur)))
+                cur[i] = tgt
+    for i in range(len(cur)):
+        if cur[i] != dst[i]:
+            steps.append((i, cur[i], dst[i], logical[i], list(cur)))
+            cur[i] = dst[i]
+    return steps
+
+
+def placement_bytes(move):
+    """The collective bytes by kind (output bytes) that a redistribution
+    moves, from its placements, global shape and dtype alone: an all-gather
+    per shard replicated (padded to whole chunks), an all-reduce per
+    partial replicated, a reduce-scatter per partial sharded, an all-to-all
+    per shard moved to another dim, nothing for a local split."""
+    src = [_placement(p) for p in move["src"]]
+    dst = [_placement(p) for p in move["dst"]]
+    mesh, out = move["mesh"], {}
+    for i, a, b, logical, cur in _plan(src, dst, move["shape"], mesh):
+        n, size = mesh[i], list(move["shape"])
+        for k, p in enumerate(cur):
+            if p[0] == "S":
+                size[p[1]] = _ceil(size[p[1]], mesh[k])
+        if a[0] == "S":
+            size[a[1]] = _ceil(logical[a[1]], n) * n
+        if b[0] == "S":
+            size[b[1]] = _ceil(size[b[1]], n)
+        kind = {("S", "R"): "all-gather", ("P", "R"): "all-reduce",
+                ("P", "S"): "reduce-scatter",
+                ("S", "S"): "all-to-all"}.get((a[0], b[0]))
+        if kind is not None:
+            out[kind] = out.get(kind, 0) + math.prod(size) \
+                * _ITEMSIZE[move["dtype"]]
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_plans():
+    """(arch, cell) -> (record, redistributions) on the 16×16 mesh."""
+    out = {}
+    for arch, cell in PLAN_CELLS:
+        moves = []
+        rec = dryrun.lower_cell(arch, SHAPES[cell], make_production_mesh(),
+                                cfg_overrides=_cut(arch), plans=moves)
+        out[arch, cell] = rec, moves
+    return out
+
+
+@pytest.mark.parametrize("arch,cell", PLAN_CELLS)
+def test_collective_bytes_equal_placement_derived_count(mesh_plans, arch,
+                                                        cell):
+    """Every redistribution moves the bytes its placements say, and the
+    record's collectives by kind are their sum: nothing is counted that the
+    plan does not move."""
+    rec, moves = mesh_plans[arch, cell]
+    assert rec["torch"] == torch.__version__
+    total = {}
+    for m in moves:
+        want = placement_bytes(m)
+        assert m["coll"] == want, m
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+    got = {k: v for k, v in rec["roofline"]["coll_breakdown"].items() if v}
+    assert got == total
+
+
+def _shard_moves(moves):
+    return [m for m in moves
+            if any(a != b and a.startswith("S(") and b.startswith("S(")
+                   for a, b in zip(m["src"], m["dst"]))]
+
+
+@pytest.mark.parametrize("arch,cell", PLAN_CELLS)
+def test_shard_to_shard_moves_are_all_to_all(mesh_plans, arch, cell):
+    """A planned ``Shard(i) -> Shard(j)`` move is one all-to-all of the local
+    bytes, never an all-gather of the whole tensor (DTensor's CPU route)."""
+    rec, moves = mesh_plans[arch, cell]
+    planned = _shard_moves(moves)
+    a2a = rec["roofline"]["coll_breakdown"]["all-to-all"]
+    assert (a2a > 0) == bool(planned)
+    for m in planned:
+        whole = math.prod(m["shape"]) * _ITEMSIZE[m["dtype"]]
+        assert set(m["coll"]) == {"all-to-all"}, m
+        assert m["coll"]["all-to-all"] * 256 == whole, m
+
+
+def test_op_counter_counts_dtensor_all_to_all():
+    """A CUDA mesh runs a ``Shard -> Shard`` move as
+    ``_dtensor::shard_dim_alltoall``: counted as an all-to-all of its output
+    bytes.  The fake mesh runs it as ``all_to_all_single``, with the CPU
+    route's shapes, and puts DTensor's own route back on exit."""
+    from torch.distributed.tensor import (Shard, distribute_tensor,
+                                          placement_types)
+    cpu_route = placement_types.shard_dim_alltoall
+    with dryrun.fake_device_mesh(MeshShape(("data", "model"), (2, 4))) as m:
+        x = torch.empty(2, 8, 6, dtype=torch.bfloat16, device="meta")
+        with hlo_analysis.OpCounter() as c:
+            y = torch.ops._dtensor.shard_dim_alltoall(
+                x, 0, 1, m.get_group(1).group_name)
+        assert c.coll["all-to-all"] == hlo_analysis.nbytes(y) > 0
+        assert sum(c.coll.values()) == c.coll["all-to-all"]
+        t = distribute_tensor(torch.zeros(8, 12), m, [Shard(0), Shard(0)],
+                              src_data_rank=None)
+        with hlo_analysis.OpCounter() as c:
+            u = t.redistribute(m, [Shard(0), Shard(1)])
+        assert u.to_local().shape == (4, 3)
+        assert c.coll["all-to-all"] == 4 * 3 * 4
+        assert c.coll["all-gather"] == 0
+    assert placement_types.shard_dim_alltoall is cpu_route

@@ -53,7 +53,15 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
             "repro_torch.distributed.placement",
             "repro_torch.distributed.hoststaged",
             "repro_torch.launch.dryrun",
-            "repro_torch.launch.hlo_analysis"} <= set(names)
+            "repro_torch.launch.hlo_analysis",
+            "repro_torch.analysis", "repro_torch.analysis.__main__",
+            "repro_torch.analysis.cli", "repro_torch.analysis.core",
+            "repro_torch.analysis.rules",
+            "repro_torch.analysis.rules.determinism",
+            "repro_torch.analysis.rules.dtype",
+            "repro_torch.analysis.rules.hygiene",
+            "repro_torch.analysis.rules.identity",
+            "repro_torch.analysis.rules.obs_guard"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -72,12 +80,33 @@ def test_no_source_line_imports_jax_or_repro():
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
     root = pathlib.Path(SRC) / "repro_torch"
-    files = list(root.rglob("*.py")) + [root.parents[1] / "chip_smoke.py"]
+    examples = sorted((root.parents[1] / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 5
+    files = list(root.rglob("*.py")) + [root.parents[1] / "chip_smoke.py"] \
+        + examples
     assert len(files) > 30
     hits = [f"{f}:{i}" for f in files if f.exists()
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert not hits, hits
+
+
+def test_examples_import_neither_jax_nor_repro():
+    """Loading every script of ``examples/torch`` (its imports, not its
+    ``main``) pulls in no jax and nothing of the reference."""
+    examples = pathlib.Path(SRC).parent / "examples" / "torch"
+    code = (
+        "import importlib.util, pathlib, sys\n"
+        f"for path in sorted(pathlib.Path({str(examples)!r}).glob('*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
 
 
 _DEFAULT_RUN = """
