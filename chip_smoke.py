@@ -138,7 +138,7 @@ Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
 d_state 64) and times them beside PyTorch's own call for the same function
 (flash_attention in bf16, its tensor-core design, and in float32, its
-CUDA-core design; ssd_scan in bf16, its three-launch tensor-core design, held
+CUDA-core design; ssd_scan in bf16, its tensor-core design, held
 both to the sequential recurrence and to ssd_scan_chunked_ref with the
 kernel's rounding points, and in float32, its CUDA-core design).  Then a line
 {"kernels": [...]} (per kernel: route, source, the TPU kernel it replaces,
@@ -195,6 +195,7 @@ from repro_torch.core.allocator_np import allocate_cluster_np
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.alloc_active_set import alloc_active_set_geometry
 from repro_torch.kernels.event_step import event_step_geometry
+from repro_torch.kernels.ssd_scan import FOLD_CHUNKS
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.core import HAFPlacement, datagen, make_agent
@@ -232,7 +233,10 @@ F64_FLOPS = 33.5e12
 BF16_TC_FLOPS = 989e12
 
 # the device kernels of each serving kernel, by a part of their names
-SERVE_KERNEL_NAMES = {"flash_attention": ("flash_tc_kernel",),
+# (flash: the tile of a power of two, the 80-column design; ssd_scan: the
+# pass kernel runs past FOLD_CHUNKS chunks only)
+SERVE_KERNEL_NAMES = {"flash_attention": ("flash_tc_kernel",
+                                          "flash_tc80_kernel"),
                       "ssd_scan": ("ssd_state_kernel", "ssd_pass_kernel",
                                    "ssd_out_kernel")}
 SERVE_B, SERVE_S, SERVE_STEPS, RAGGED_S = 4, 512, 32, 300
@@ -263,9 +267,10 @@ def nvidia_smi_line() -> str:
 # phase 2: what the compiler made of each kernel
 # --------------------------------------------------------------------------- #
 # SASS opcodes counted in flash_attention's library: tensor-core products and
-# asynchronous global -> shared copies
+# asynchronous global -> shared copies (and TMA stores, counted beside them)
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 ASYNC_COPY_OPS = ("UTMALDG", "UBLKCP", "LDGSTS")
+TMA_STORE_OPS = ("UTMASTG",)
 
 
 def find_cuobjdump() -> str:
@@ -332,7 +337,7 @@ def sass_counts(lib) -> dict:
     sass = subprocess.run([find_cuobjdump(), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     per, fn = {}, None
-    ops_ = TENSOR_CORE_OPS + ASYNC_COPY_OPS
+    ops_ = TENSOR_CORE_OPS + ASYNC_COPY_OPS + TMA_STORE_OPS
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -347,7 +352,7 @@ def sass_counts(lib) -> dict:
 
 
 # the bf16 tensor-core kernels of each library, by a part of their names
-TC_KERNELS = {"flash_attention": ("flash_tc_kernel",),
+TC_KERNELS = {"flash_attention": ("flash_tc_kernel", "flash_tc80_kernel"),
               "ssd_scan": ("ssd_state_kernel", "ssd_out_kernel")}
 # the kernels fed by 1-D bulk copies (cp.async.bulk -> UBLKCP in the SASS)
 BULK_KERNELS = {"alloc_active_set": ("alloc_warp_kernel",)}
@@ -374,7 +379,8 @@ def phase_build(libs) -> None:
                         f"{k}: no tensor-core or no asynchronous-copy "
                         f"instruction in its SASS: {c}")
         totals = {op: sum(c[op] for c in sass.values())
-                  for op in TENSOR_CORE_OPS + ASYNC_COPY_OPS}
+                  for op in TENSOR_CORE_OPS + ASYNC_COPY_OPS
+                  + TMA_STORE_OPS}
         report[f"{lib}_sass"] = {"per_kernel": sass, "library_total": totals}
     for lib, kernels in BULK_KERNELS.items():
         sass = sass_counts(libs[lib])
@@ -965,17 +971,23 @@ def bound_of(bytes_, flops, peak):
 
 def flash_record(shape, errs):
     """flash_attention at one causal shape: bf16 (tensor cores) and float32
-    (CUDA cores) times beside the plain version and sdpa, the bf16 bound,
-    and the largest errors the shape loop found at that shape."""
+    (CUDA cores) times beside the plain version and sdpa, the bf16 kernel's
+    device time by torch.profiler, the bf16 bound, and the largest errors
+    the shape loop found at that shape."""
     q, k, v = flash_inputs(0, *shape, torch.bfloat16)
     q32, k32, v32 = flash_inputs(0, *shape, torch.float32)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     err = errs[shape]
+    # one device kernel a call: flash_tc_kernel<d>, or flash_tc80_kernel
+    prof, _, dropped = profiled(lambda: ops.flash_attention(q, k, v),
+                                ("flash_tc",))
     return {
         "shape": list(shape), "dtype": "bfloat16",
         "max_abs_err": max(err.values()),
         "max_abs_err_f32": err[torch.float32],
         "max_abs_err_bf16": err[torch.bfloat16],
+        "profiler_device_us": prof["flash_tc"],
+        "trace_dropped_device_records": dropped,
         "ms": median_ms(lambda: ops.flash_attention(q, k, v)),
         "ms_f32": median_ms(lambda: ops.flash_attention(q32, k32, v32)),
         "plain_ms": median_ms(lambda: ref.attention_ref(
@@ -984,6 +996,16 @@ def flash_record(shape, errs):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
         **bound_of(*flash_bound(*shape, 2))}
+
+
+def ssd_kernel_names(S: int, chunk: int):
+    """The bf16 route's device kernels at ``S`` and ``chunk`` (which
+    ``ops.ssd_scan`` halves until it divides ``S``): the pass kernel only
+    past ``FOLD_CHUNKS`` chunks."""
+    while S % chunk:
+        chunk //= 2
+    return tuple(k for k in SERVE_KERNEL_NAMES["ssd_scan"]
+                 if k != "ssd_pass_kernel" or S // chunk > FOLD_CHUNKS)
 
 
 def ssd_record(shape, errs):
@@ -995,7 +1017,7 @@ def ssd_record(shape, errs):
     args32 = ssd_inputs(0, *shape[:6])
     prof, launches, dropped = profiled(
         lambda: ops.ssd_scan(*args, chunk=shape[6]),
-        SERVE_KERNEL_NAMES["ssd_scan"])
+        ssd_kernel_names(shape[1], shape[6]))
     err = errs[shape]
     return {
         "shape": list(shape), "dtype": "bfloat16",
@@ -1110,8 +1132,9 @@ def phase_model_kernels():
         "tolerance": "f32 rtol=atol=1e-4 vs ssd_scan_sequential_ref (y and "
                      "final state), bf16 rtol=atol=2e-2 vs it and 1e-2 vs "
                      "ssd_scan_chunked_ref(bf16_points=True)",
-        "design": "bf16: three launches, wgmma (tensor cores) fed by TMA, "
-                  "chunks in parallel; float32 (ms_f32, f32 inputs): FMAs on "
+        "design": "bf16: two launches (a third, the state pass, past two "
+                  "chunks), wgmma (tensor cores) fed by TMA, chunks in "
+                  "parallel; float32 (ms_f32, f32 inputs): FMAs on "
                   "the CUDA cores, one block per (b, h)",
         "library": None,
         "zamba2": ssd_record(SSD_ZAMBA2, errs)}

@@ -6,40 +6,63 @@
 // max m, denominator l and f32 accumulator in VMEM scratch, GQA through the
 // k/v index maps, fully masked blocks skipped with pl.when).
 //
-// Both instantiations share the reference's contract: one block per
-// (b*H + h, 64-row q tile); the k loop runs inside the block and stops at the
-// causal bound, so tiles above the diagonal are never visited; the KV head
-// is h / (H / KV), never materialised; any S works, with rows past S computed
-// on zeros and not stored and keys past S masked (no host padding, no block
-// halving); masked scores are -1e30, not -inf, so exp(m_prev - m_new) never
-// reads inf - inf; the output is acc / max(l, 1e-30).  The element type
-// decides the design — a contract of the function, not a fallback:
+// Every design shares the reference's contract: the k loop runs inside the
+// block and stops at the causal bound, so tiles above the diagonal are never
+// visited; the KV head is h / (H / KV), never materialised; any S works,
+// with rows past S computed on zeros and not stored and keys past S masked
+// (no host padding, no block halving); masked scores are -1e30, not -inf,
+// so exp(m_prev - m_new) never reads inf - inf; the output is
+// acc / max(l, 1e-30).  The element type decides the design — a contract of
+// the function, not a fallback:
 //
 // bfloat16 (the served path): the products run on the tensor cores.  One
-// warpgroup (128 threads) owns a 64-row q tile and issues
-// wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate).  S = Q K^T reads Q and
-// K from shared memory (K-major: d contiguous, as the model stores them);
-// O += P V takes P from registers — the m64n64 f32 score accumulator
-// converts pairwise to the bf16 A fragment, so P never goes through shared
-// memory — and V as an MN-major operand (transpose flag).  Tiles arrive by
-// TMA (cp.async.bulk.tensor over 4-D maps of [B, S, heads, D], so rows past S
-// within one batch row read as zeros) into a two-stage K/V ring whose
-// mbarriers the block waits on; tile j+1 is in flight while tile j is
-// multiplied.  The TMA swizzle (32, 64 or 128 B: one row of D <= 64, half a
-// row at D = 128) is the one the wgmma descriptors name.  A head dim whose
-// 2 D-byte row fits none of them (D = 80, zamba2's: 160 B) is staged in the
-// tile of the next power of two (TD = 128, two 64-column boxes): the tensor
-// map's rows stay D wide, so TMA fills columns D .. TD-1 with zeros and
-// never reads past a row; Q K^T runs D / 16 k-steps, P V a wgmma of N = D
-// (m64n80k16: box 0 and 16 columns of box 1), and only D columns are stored.  Only the diagonal
-// tile (and the ragged last one) is masked element-wise; log2(e) is folded
-// into the scale, so each score costs one FFMA and one EX2; m, l and acc
-// are f32 registers; P is rounded to bf16 before P V, the rounding of the
-// reference's own oracle (probs.astype(v.dtype)); l sums the unrounded P.
-// q tiles launch longest
+// warpgroup (128 threads) owns a 64-row q tile (one block per (b*H + h, q
+// tile)) and issues wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate).
+// S = Q K^T reads Q and K from shared memory (K-major: d contiguous, as the
+// model stores them); O += P V takes P from registers — the m64n64 f32
+// score accumulator converts pairwise to the bf16 A fragment, so P never
+// goes through shared memory — and V as an MN-major operand (transpose
+// flag).  Tiles arrive by TMA (cp.async.bulk.tensor over 4-D maps of
+// [B, S, heads, D], so rows past S within one batch row read as zeros) into
+// a two-stage K/V ring whose mbarriers the block waits on; tile j+1 is in
+// flight while tile j is multiplied.  The TMA swizzle (32, 64 or 128 B: one
+// row of D <= 64, half a row at D = 128) is the one the wgmma descriptors
+// name.  Only the diagonal tile (and the ragged last one) is masked
+// element-wise; log2(e) is folded into the scale, so each score costs one
+// FFMA and one EX2; m, l and acc are f32 registers; P is rounded to bf16
+// before P V, the rounding of the reference's own oracle
+// (probs.astype(v.dtype)); l sums the unrounded P.  q tiles launch longest
 // first (reversed blockIdx.y) so the grid's tail is short tiles.  At qwen2's
 // shape (B = 4, S = 512, H = 14, KV = 2, D = 64) the work is 8.4 MB and
 // 1.9 GFLOP causal: bound by bytes (2.5 us) against 1.9 us at 989 TFLOP/s.
+//
+// bfloat16 at D = 80 (zamba2's shared attention, 32 heads of 80, GQA 1:1),
+// flash_tc80_kernel: a row of 160 bytes fits no swizzle.  At (4, 512, 32,
+// 32, 80) the work is 42 MB and 5.4 GFLOP causal, bound by bytes (12.5 us);
+// what the kernel pays for is moving K and V from L2 into shared memory
+// once for every q tile that reads them, and the time a warpgroup's tensor
+// cores stand idle through its softmax.  So:
+//   * a tile is exactly 80 columns wide: a 64-column TMA box at the 128-byte
+//     swizzle and a 16-column one at the 32-byte swizzle (10 KB for 64 rows,
+//     no zero fill); Q K^T takes its five k16 steps across the two boxes,
+//     and P V is a wgmma of N = 64 on the first box and one of N = 16 on the
+//     second, each step with its own box's descriptor layout;
+//   * a block holds 128 q rows in two warpgroups that share every K / V
+//     tile, which halves the tiles moved per q row, in a four-stage ring
+//     with full / empty mbarriers (each warp releases a stage it has read),
+//     refilled by one thread of the first warpgroup: no __syncthreads per
+//     tile.  Two blocks, four warpgroups, an SM take turns on the tensor
+//     cores through one another's softmax.  A producer warp of its own was
+//     measured and dropped: two blocks of nine warps leave 96 registers a
+//     thread (an SM partition's 16K registers over five warps), ptxas spilled
+//     and serialised the wgmma, and the kernel took 46.6 us against 28.3 us
+//     (tools/model_kernel_compare.py, PERF.md, PR 22);
+//   * a warpgroup issues P V of tile j and Q K^T of tile j + 1 back to back
+//     before it waits, skips the causal tile it does not reach, and does
+//     nothing when its 64 rows all lie past S;
+//   * the output goes through the warpgroup's Q tile, in the layout TMA
+//     writes, to two TMA stores, which drop the rows past S.
+// Its arithmetic is the other head dims'.
 //
 // float32: the products stay f32 FMAs on the CUDA cores (inputs staged in
 // shared memory, each thread a 4 x 8 patch of the score tile and a 4 x D/8
@@ -55,9 +78,9 @@ constexpr int BK = 64;            // keys per k tile
 constexpr int THREADS = 128;      // one warpgroup
 constexpr float NEG = -1e30f;
 
-// the bf16 route's shared-memory tile width for head dim D: D where a row
-// of D bf16 is 32, 64 or 128 bytes or two 128-byte boxes, else the next
-// power of two (D = 80 -> 128); columns D .. TD-1 hold TMA's zero fill
+// the bf16 route's shared-memory tile width for head dim D (D = 80 has a
+// design of its own): a row of D bf16 is 32, 64 or 128 bytes, or two
+// 128-byte boxes
 __host__ __device__ constexpr int tile_dim(int D) {
     return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
 }
@@ -406,6 +429,285 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 }
 
+// --------------------------------------------------------------------------
+// bfloat16 at head dim 80: a tile exactly 80 columns wide, 128 q rows a
+// block in two warpgroups that share each K / V tile
+// --------------------------------------------------------------------------
+// The D = 80 tile plan: the TMA boxes of one [64 rows x 80] tile, each
+// {columns, swizzle row bytes} — a 64-column box at the 128-byte swizzle,
+// then a 16-column box at the 32-byte swizzle; no column is zero fill.
+constexpr int D80_BOX_COLS[2] = {64, 16};
+constexpr int D80_BOX_ROW_B[2] = {128, 32};
+static_assert(D80_BOX_COLS[0] + D80_BOX_COLS[1] == 80
+              && D80_BOX_COLS[0] * 2 == D80_BOX_ROW_B[0]
+              && D80_BOX_COLS[1] * 2 == D80_BOX_ROW_B[1],
+              "the D = 80 boxes cover 80 columns, each one swizzle row");
+constexpr int D80_WG = 2;                          // consumer warpgroups
+constexpr int D80_BQ = 64 * D80_WG;                // q rows a block
+constexpr int D80_BK = BK;                         // keys a k tile
+constexpr int D80_THREADS = 128 * D80_WG;
+constexpr int D80_STAGES = 4;                      // K/V ring depth
+constexpr int D80_BOX_A = 64 * D80_BOX_ROW_B[0];   // 8 KB
+constexpr int D80_TILE = D80_BOX_A + 64 * D80_BOX_ROW_B[1];   // 10 KB
+// Q (one tile a warpgroup, reused for the output), the K/V ring, then
+// 1 + 2 STAGES mbarriers: 100 KB and alignment, so two blocks fit an SM
+constexpr int D80_SMEM =
+    (D80_WG + 2 * D80_STAGES) * D80_TILE + 1024 + 8 * (1 + 2 * D80_STAGES);
+
+// S = Q K^T over the 80 columns: four k16 steps in the 128-byte box, one in
+// the 32-byte box, each step's descriptors in its own box's layout
+__device__ __forceinline__ void qk80(float (&s)[32], uint32_t sQ,
+                                     uint32_t sK) {
+    wgmma_ss_n64_first(s, make_desc(sQ, 16, 1024, 1),
+                       make_desc(sK, 16, 1024, 1));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+        wgmma_ss_n64(s, make_desc(sQ + kk * 32, 16, 1024, 1),
+                     make_desc(sK + kk * 32, 16, 1024, 1), 1);
+    wgmma_ss_n64(s, make_desc(sQ + D80_BOX_A, 16, 256, 3),
+                 make_desc(sK + D80_BOX_A, 16, 256, 3), 1);
+}
+
+__global__ void __launch_bounds__(D80_THREADS, 2)
+flash_tc80_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_q16,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_k16,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_v16,
+                  const __grid_constant__ CUtensorMap map_o,
+                  const __grid_constant__ CUtensorMap map_o16, int S, int H,
+                  int KV, float scale_log2, int causal) {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+    const uint32_t sKV = base + D80_WG * D80_TILE;   // stage st: K, then V
+    const uint32_t barQ = sKV + 2 * D80_STAGES * D80_TILE;
+    // full[st] at barQ + 8 (1 + st), empty[st] at barQ + 8 (1 + STAGES + st)
+
+    const int tid = threadIdx.x;
+    const int bh = blockIdx.x;
+    const int b = bh / H, h = bh % H;
+    const int kvh = h / (H / KV);
+    const int qt = gridDim.y - 1 - blockIdx.y;      // longest tiles first
+    const int q0 = qt * D80_BQ;
+    const int n_k_all = (S + D80_BK - 1) / D80_BK;
+    const int n_k = causal && 2 * qt + 2 < n_k_all ? 2 * qt + 2 : n_k_all;
+    const int n_wg = q0 + 64 < S ? 2 : 1;            // warpgroups with rows
+
+    if (tid == 0) {
+        mbar_init(barQ, 1);
+        for (int st = 0; st < D80_STAGES; ++st) {
+            mbar_init(barQ + 8 * (1 + st), 1);
+            mbar_init(barQ + 8 * (1 + D80_STAGES + st), 4 * n_wg);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // K / V tile j into stage j % STAGES (thread 0: the first STAGES tiles
+    // now, each later one once both warpgroups have released its stage)
+    auto load_kv = [&](int j) {
+        const int st = j % D80_STAGES;
+        const uint32_t full = barQ + 8 * (1 + st);
+        const uint32_t sK = sKV + 2 * st * D80_TILE;
+        const uint32_t sV = sK + D80_TILE;
+        mbar_expect_tx(full, 2 * D80_TILE);
+        tma_load(&map_k, sK, full, 0, kvh, j * D80_BK, b);
+        tma_load(&map_k16, sK + D80_BOX_A, full, 64, kvh, j * D80_BK, b);
+        tma_load(&map_v, sV, full, 0, kvh, j * D80_BK, b);
+        tma_load(&map_v16, sV + D80_BOX_A, full, 64, kvh, j * D80_BK, b);
+    };
+    if (tid == 0) {
+        mbar_expect_tx(barQ, D80_WG * D80_TILE);
+        for (int w = 0; w < D80_WG; ++w) {
+            const uint32_t dst = base + w * D80_TILE;
+            tma_load(&map_q, dst, barQ, 0, h, q0 + 64 * w, b);
+            tma_load(&map_q16, dst + D80_BOX_A, barQ, 64, h, q0 + 64 * w, b);
+        }
+        for (int j = 0; j < n_k && j < D80_STAGES; ++j) load_kv(j);
+    }
+
+    const int wg = tid >> 7;
+    if (wg >= n_wg) return;                          // rows all past S
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;           // fragment row / col pair
+    const int diag = 2 * qt + wg;                    // its diagonal tile
+    const int n_kw = causal && diag + 1 < n_k_all ? diag + 1 : n_k_all;
+    const uint32_t sQ = base + wg * D80_TILE;
+    const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+
+    // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1); columns
+    // 0 .. 63 in acc, 64 .. 79 in acc16
+    float acc[32], acc16[8], s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc16[i] = 0.0f;
+    float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+
+    mbar_wait(barQ, 0);
+    mbar_wait(barQ + 8, 0);
+    wgmma_fence();
+    qk80(s, sQ, sKV);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    for (int j = 0; j < n_kw; ++j) {
+        const int st = j % D80_STAGES;
+        const uint32_t sV = sKV + (2 * st + 1) * D80_TILE;
+
+        // mask the diagonal / ragged tile, online softmax (m in score units,
+        // p = 2^(s * scale_log2 - m * scale_log2)); s[4c + e] is row
+        // (e < 2 ? g : g + 8), key 8c + 2t + (e & 1)
+        const int k0 = j * D80_BK;
+        const bool masked = (causal && j == diag) || k0 + D80_BK > S;
+        float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            if (masked) {
+                const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+                const int qp = (i & 2) ? row1 : row0;
+                if (kp >= S || (causal && kp > qp)) s[i] = NEG;
+            }
+            if (i & 2) mx1 = fmaxf(mx1, s[i]);
+            else mx0 = fmaxf(mx0, s[i]);
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float a0 = ex2((m0 - mn0) * scale_log2);
+        const float a1 = ex2((m1 - mn1) * scale_log2);
+        m0 = mn0;
+        m1 = mn1;
+        const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+        float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+            s[i] = p;
+            if (i & 2) rs1 += p;
+            else rs0 += p;
+        }
+        l0 = l0 * a0 + rs0;
+        l1 = l1 * a1 + rs1;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= (i & 2) ? a1 : a0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc16[i] *= (i & 2) ? a1 : a0;
+
+        // O += P V (P rounded to bf16, pairwise from the score accumulator),
+        // V read in both boxes: N = 64 at the 128-byte swizzle, N = 16 at
+        // the 32-byte one
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+            pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        fence_regs(acc);
+        fence_regs(acc16);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {   // keys 16 kk .. 16 kk + 15
+            wgmma_rs_n64(acc, pa[kk], make_desc(sV + kk * 16 * 128, 8192,
+                                                1024, 1));
+            wgmma_rs_n16(acc16, pa[kk], make_desc(sV + D80_BOX_A + kk * 16 * 32,
+                                                  2048, 256, 3));
+        }
+        wgmma_commit();
+        if (j + 1 < n_kw) {
+            const int nst = (j + 1) % D80_STAGES;
+            mbar_wait(barQ + 8 * (1 + nst), ((j + 1) / D80_STAGES) & 1);
+            wgmma_fence();
+            qk80(s, sQ, sKV + 2 * nst * D80_TILE);
+            wgmma_commit();
+        }
+        wgmma_wait_all();
+        fence_regs(acc);
+        fence_regs(acc16);
+        fence_regs(s);
+        if (lane == 0) mbar_arrive(barQ + 8 * (1 + D80_STAGES + st));
+        if (tid == 0 && j + D80_STAGES < n_k) {
+            mbar_wait(barQ + 8 * (1 + D80_STAGES + st), (j / D80_STAGES) & 1);
+            load_kv(j + D80_STAGES);
+        }
+    }
+
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+
+    // epilogue: O into this warpgroup's Q tile (its last reader, Q K^T, is
+    // done) in the layout TMA loads write — 16-byte pieces of a row
+    // permuted by the swizzle: piece ^= address bits 7.. (row % 8 in the
+    // 128-byte box, (row / 4) % 2 in the 32-byte one) — then two TMA stores,
+    // which drop the rows past S
+    named_sync(1 + wg, 128);
+    uint8_t* gQ = gbase + (sQ - base);
+    const int r0 = 16 * warp + g, r1 = r0 + 8;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            gQ + r0 * 128 + ((c ^ (r0 & 7)) << 4) + 4 * t) =
+            __floats2bfloat162_rn(acc[4 * c] / den0, acc[4 * c + 1] / den0);
+        *reinterpret_cast<__nv_bfloat162*>(
+            gQ + r1 * 128 + ((c ^ (r1 & 7)) << 4) + 4 * t) =
+            __floats2bfloat162_rn(acc[4 * c + 2] / den1,
+                                  acc[4 * c + 3] / den1);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            gQ + D80_BOX_A + r0 * 32 + ((c ^ ((r0 >> 2) & 1)) << 4) + 4 * t) =
+            __floats2bfloat162_rn(acc16[4 * c] / den0,
+                                  acc16[4 * c + 1] / den0);
+        *reinterpret_cast<__nv_bfloat162*>(
+            gQ + D80_BOX_A + r1 * 32 + ((c ^ ((r1 >> 2) & 1)) << 4) + 4 * t) =
+            __floats2bfloat162_rn(acc16[4 * c + 2] / den1,
+                                  acc16[4 * c + 3] / den1);
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if ((tid & 127) == 0) {
+        tma_store(&map_o, sQ, 0, h, q0 + 64 * wg, b);
+        tma_store(&map_o16, sQ + D80_BOX_A, 64, h, q0 + 64 * wg, b);
+        tma_store_drain();
+    }
+}
+
+cudaError_t launch_tc80(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int H, int KV, float scale, int causal,
+                        cudaStream_t st) {
+    if (reinterpret_cast<uintptr_t>(o) & 15) return cudaErrorMisalignedAddress;
+    CUtensorMap mq, mq16, mk, mk16, mv, mv16, mo, mo16;
+    if (!make_map<64>(&mq, q, B, S, H, 80)
+        || !make_map<16>(&mq16, q, B, S, H, 80)
+        || !make_map<64>(&mk, k, B, S, KV, 80)
+        || !make_map<16>(&mk16, k, B, S, KV, 80)
+        || !make_map<64>(&mv, v, B, S, KV, 80)
+        || !make_map<16>(&mv16, v, B, S, KV, 80)
+        || !make_map<64>(&mo, o, B, S, H, 80)
+        || !make_map<16>(&mo16, o, B, S, H, 80))
+        return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_tc80_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        D80_SMEM);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(B * H, (S + D80_BQ - 1) / D80_BQ);
+    flash_tc80_kernel<<<grid, D80_THREADS, D80_SMEM, st>>>(
+        mq, mq16, mk, mk16, mv, mv16, mo, mo16, S, H, KV,
+        scale * 1.4426950408889634f, causal);
+    return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int H, int KV, float scale, int causal,
@@ -425,6 +727,15 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
         mq, mk, mv, static_cast<bf16*>(o), S, H, KV,
         scale * 1.4426950408889634f, causal);
     return cudaGetLastError();
+}
+
+// head dim 80 takes its own design (flash_tc80_kernel), not the tile of a
+// power of two
+template <>
+cudaError_t launch_tc<80>(const void* q, const void* k, const void* v,
+                          void* o, int B, int S, int H, int KV, float scale,
+                          int causal, cudaStream_t st) {
+    return launch_tc80(q, k, v, o, B, S, H, KV, scale, causal, st);
 }
 
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,

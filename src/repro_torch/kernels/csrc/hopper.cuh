@@ -82,6 +82,33 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
         : "memory");
 }
 
+// one TMA box stored back: shared memory at `src`, in the layout a load of
+// the same map writes, to columns [c0, c0 + box) of rows [s0, s0 + rows) of
+// head `head` in batch row `b`; elements past the tensor's bounds (rows past
+// S) are not written.  Completes as a bulk group of the issuing thread.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int head, int s0, int b) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4, %5}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0),
+           "r"(head), "r"(s0), "r"(b)
+        : "memory");
+}
+
+// closes this thread's bulk group and waits until its stores have read
+// their shared memory (which may then be freed or reused)
+__device__ __forceinline__ void tma_store_drain() {
+    asm volatile("cp.async.bulk.commit_group;\n"
+                 "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// a barrier over `threads` threads (a multiple of 32) of the block, named
+// `id` (1 .. 15; 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // one 1-D bulk copy of `bytes` contiguous bytes, global -> shared, completing
 // as transaction bytes on `bar`; no tensor map.  `bytes`, `src` and `dst`
 // must all be multiples of 16 (the copy is never rounded up past the end)
@@ -153,6 +180,28 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] = A[64 x 16] . B[16 x 64], both from shared memory: the first
+// k step of a product, whose accumulator holds nothing live before it
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da,
+                                                  uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+          "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(da), "l"(db), "r"(0));
+}
+
 // D[64 x 128] += A[64 x 16] . B[16 x 128], both from shared memory and both
 // MN-major (A stored [K][M], B stored [K][N]: the transpose bits)
 __device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da,
@@ -184,6 +233,28 @@ __device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da,
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], both from shared memory and both
+// MN-major (A stored [K][M], B stored [K][N]: the transpose bits)
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(1));
 }
 
@@ -278,38 +349,12 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D[64 x 80] += A[64 x 16] . B[16 x 80], A from registers, B MN-major
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
     if constexpr (D == 16) wgmma_rs_n16(d, a, db);
     else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
     else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-    else if constexpr (D == 80) wgmma_rs_n80(d, a, db);
     else wgmma_rs_n128(d, a, db);
 }
 

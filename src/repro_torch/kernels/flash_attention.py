@@ -8,8 +8,10 @@ directly (no head transposes, no repeated KV heads).  The kernel is
 ``csrc/flash_attention.cu``: bfloat16 inputs run on the tensor cores
 (``wgmma`` fed by TMA, P rounded to bfloat16 before ``P v``), float32 inputs
 on the CUDA cores in float32; a head dim of 80 (zamba2's) runs on both
-routes, the bf16 one staged in zero-filled 128-column tiles.  This module is
-its launcher.  The plain
+routes, the bf16 one in a design of its own: tiles exactly 80 columns wide
+(a 64-column and a 16-column TMA box), 128 query rows a block in two
+warpgroups that share each key / value tile.  This module is its launcher.
+The plain
 version is :func:`repro_torch.kernels.ref.attention_ref`.
 """
 from __future__ import annotations

@@ -6,8 +6,9 @@ chunk axis).  The kernels are ``csrc/ssd_scan.cu``; this module is their
 launcher.  The element type decides the design: float32 inputs run one
 CUDA-core kernel that walks every ``(batch, head)`` over its chunks in order
 (held to 1e-4 against the recurrence); bfloat16 inputs run the
-state-passing form on the tensor cores in three launches — every chunk's own
-state, the float32 passing of the state across chunks, every chunk's outputs.
+state-passing form on the tensor cores — every chunk's own state, the float32
+passing of the state across chunks (its own launch past two chunks, folded
+into the output kernel up to two), every chunk's outputs.
 The plain versions are :func:`repro_torch.kernels.ref.ssd_scan_sequential_ref`
 (the recurrence, a different algorithm on purpose) and
 :func:`repro_torch.kernels.ref.ssd_scan_chunked_ref` (the bf16 design's
@@ -23,6 +24,16 @@ from repro_torch.kernels import _build
 # widest head and state the kernels cover (csrc/ssd_scan.cu)
 MAX_P = 64
 MAX_N = 128
+# at most this many chunks the bf16 route needs no pass kernel: the state
+# kernel writes in_1 = delta_0 and the output kernel the final state
+# (FOLD_CHUNKS in csrc/ssd_scan.cu)
+FOLD_CHUNKS = 2
+
+
+def state_cols(nx: int) -> int:
+    """The bf16 route's tile width NT for a state dim padded to ``nx``
+    columns: 64 up to 64, else 128 (``launch_tc`` in csrc/ssd_scan.cu)."""
+    return 64 if nx <= 64 else MAX_N
 
 
 def _rows_of_8(t: torch.Tensor) -> torch.Tensor:
@@ -39,16 +50,17 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``x`` ``[b, S, h, p]``, ``dt`` ``[b, S, h]``, ``A`` ``[h]``, ``B, C``
     ``[b, S, g, n]``: contiguous, one dtype, as
     :func:`repro_torch.kernels.ops.ssd_scan` checks; ``chunk`` divides ``S``.
-    Allocates ``y`` (``x``'s dtype), the float32 final state ``[b, h, p, n]``
-    and float32 scratch (the chunk cumsums; for bf16 also the chunk states,
-    totals and the incoming states as hi / lo bf16 pairs); does not
-    synchronise.  Returns ``(y, state)``.
+    Allocates ``y`` and the final state ``[b, h, p, n]`` (``x``'s dtype: the
+    state is carried in float32 and rounded once) and scratch (the float32
+    chunk cumsums; for bf16 also the chunk states and totals, and the
+    incoming states as hi / lo bf16 pairs); does not synchronise.  Returns
+    ``(y, state)``.
     """
     b, S, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dev = x.device
     y = torch.empty_like(x)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    state = torch.empty((b, h, p, n), dtype=x.dtype, device=dev)
     csum = torch.empty((b * h, S), dtype=torch.float32, device=dev)
     null = torch.empty(0, device=dev)
     delta = totals = in_hi = in_lo = null
@@ -56,12 +68,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.dtype == torch.bfloat16:
         x, B, C = (_rows_of_8(t) for t in (x, B, C))
         px, nx = x.shape[-1], B.shape[-1]
-        tiles = b * h * -(-S // chunk)
-        delta = torch.empty((tiles, MAX_P, MAX_N), dtype=torch.float32,
-                            device=dev)
-        totals = torch.empty(tiles, dtype=torch.float32, device=dev)
-        in_hi = torch.empty((tiles, MAX_P, MAX_N), dtype=torch.bfloat16,
-                            device=dev)
+        nc = -(-S // chunk)
+        tile = (b * h * nc, MAX_P, state_cols(nx))
+        delta = torch.empty(tile, dtype=torch.float32, device=dev)
+        totals = torch.empty(b * h * nc, dtype=torch.float32, device=dev)
+        in_hi = torch.empty(tile, dtype=torch.bfloat16, device=dev)
         in_lo = torch.empty_like(in_hi)
     with torch.cuda.device(dev):
         _build.launch(
@@ -69,6 +80,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
             csum.data_ptr(), delta.data_ptr(), totals.data_ptr(),
             in_hi.data_ptr(), in_lo.data_ptr(), b, S, h, g, p, px, n, nx,
-            chunk, _build.DTYPE_CODES[x.dtype],
+            chunk,
+            _build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     return y, state

@@ -650,15 +650,18 @@ def _flash_tiles_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d)
 
 
-@pytest.mark.parametrize("causal", (True, False))
-@pytest.mark.parametrize("B,S,H,KV,d", FLASH_SHAPES + [(2, 300, 14, 2, 64)])
-def test_flash_attention_bf16_tile_rounding_matches_reference(B, S, H, KV, d,
-                                                              causal):
-    """The tensor-core kernel's arithmetic (emulated above) against the
-    reference's Pallas kernel in bf16 (interpret mode) and its float32
-    oracle, at the reference's bf16 bar (rtol 2e-2, atol 2e-1); the
-    emulation stays within 2e-2 of the oracle everywhere.  qwen2's head
-    layout at S = 300 runs the Pallas kernel as one block of 300."""
+def _flash_source() -> str:
+    from repro_torch.kernels import flash_attention as fa
+    return (pathlib.Path(fa.__file__).parent / "csrc"
+            / "flash_attention.cu").read_text()
+
+
+def _flash_key_tile(src: str) -> int:
+    """The bf16 route's key tile (``BK``) in ``csrc/flash_attention.cu``."""
+    return int(re.search(r"constexpr int BK = (\d+);", src).group(1))
+
+
+def _hold_tiles_emulation(B, S, H, KV, d, causal, block=64):
     rng = np.random.default_rng(B * 1000 + S + H + 7)
     q, k, v = (_normal(rng, (B, S, n, d)) for n in (H, KV, KV))
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
@@ -668,10 +671,54 @@ def test_flash_attention_bf16_tile_rounding_matches_reference(B, S, H, KV, d,
     oracle = np.asarray(ref_kref.attention_ref(
         *(a.astype(jnp.float32) for a in (jq, jk, jv)), causal=causal))
     got = _flash_tiles_emulation(
-        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal).numpy()
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal,
+        block).numpy()
     for want in (pallas, oracle):
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-1)
     assert np.abs(got - oracle).max() < 2e-2
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("B,S,H,KV,d", FLASH_SHAPES + [(2, 300, 14, 2, 64)])
+def test_flash_attention_bf16_tile_rounding_matches_reference(B, S, H, KV, d,
+                                                              causal):
+    """The tensor-core kernel's arithmetic (emulated above) against the
+    reference's Pallas kernel in bf16 (interpret mode) and its float32
+    oracle, at the reference's bf16 bar (rtol 2e-2, atol 2e-1); the
+    emulation stays within 2e-2 of the oracle everywhere.  qwen2's head
+    layout at S = 300 runs the Pallas kernel as one block of 300."""
+    _hold_tiles_emulation(B, S, H, KV, d, causal)
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("B,S,H,KV", [(1, 300, 4, 4), (2, 256, 2, 2),
+                                      (1, 77, 2, 2)])
+def test_flash_attention_bf16_d80_route_matches_reference(B, S, H, KV,
+                                                          causal):
+    """Head dim 80's own route (``flash_tc80_kernel``), emulated at its key
+    tile, against the reference's Pallas kernel in bf16 (interpret) and its
+    float32 oracle at the bf16 bar: zamba2's GQA 1:1 at a ragged 300 (a
+    128-row block whose second warpgroup holds no row), two whole 128-row
+    blocks, and 77 rows (a block whose second warpgroup holds 13)."""
+    _hold_tiles_emulation(B, S, H, KV, 80, causal,
+                          _flash_key_tile(_flash_source()))
+
+
+def test_flash_head_dim_80_tile_plan_is_exactly_80_columns():
+    """The d = 80 route's tile plan in ``csrc/flash_attention.cu``: its TMA
+    boxes' columns sum to 80, each box's columns fill its swizzle row (32,
+    64 or 128 bytes), so no box is zero fill, and the route steps by the
+    key tile that the emulation above takes."""
+    src = _flash_source()
+    cols = [int(c) for c in re.search(
+        r"D80_BOX_COLS\[2\] = \{(\d+), (\d+)\}", src).groups()]
+    row_b = [int(c) for c in re.search(
+        r"D80_BOX_ROW_B\[2\] = \{(\d+), (\d+)\}", src).groups()]
+    assert sum(cols) == 80
+    assert all(r in (32, 64, 128) and 2 * c == r
+               for c, r in zip(cols, row_b))
+    assert _flash_key_tile(src) == 64
+    assert re.search(r"constexpr int D80_BK = BK;", src)
 
 
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
@@ -741,15 +788,17 @@ def test_ssd_chunked_ref_matches_pallas_and_sequential(b, s, h, g, p, n,
 @pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
     (1, 300, 2, 1, 64, 128, 300), (1, 512, 2, 1, 64, 128, 64),
     (1, 256, 4, 2, 64, 128, 64), (1, 192, 3, 1, 20, 36, 64),
-    (1, 200, 4, 2, 32, 64, 64), (1, 256, 80, 1, 64, 64, 64)])
+    (1, 200, 4, 2, 32, 64, 64), (1, 256, 80, 1, 64, 64, 64),
+    (1, 512, 80, 1, 64, 64, 256)])
 def test_ssd_chunked_ref_bf16_points_meet_the_bf16_bar(b, s, h, g, p, n,
                                                        chunk):
     """With the bf16 kernel's rounding points (hi / lo bf16 pairs for w, the
     masked scores and the carried state), the chunked form stays within the
     reference's bf16 bar (rtol = atol = 2e-2) of the reference's sequential
     oracle and of the port's on the same bf16 inputs — mamba2's one chunk of
-    300 and eight chunks of 64 at S = 512 included — and differs from the
-    unrounded form."""
+    300 and eight chunks of 64 at S = 512, and zamba2's geometry (80 heads
+    of 64, d_state 64, one group) over its two chunks of 256, included —
+    and differs from the unrounded form."""
     tin = [torch.from_numpy(a).bfloat16()
            for a in _ssd_inputs(s + p, b, s, h, g, p, n)]
     y, st = ref.ssd_scan_chunked_ref(*tin, chunk=chunk, bf16_points=True)
@@ -787,6 +836,25 @@ def test_ssd_chunked_ref_single_bf16_points_miss_the_bf16_bar():
                             / (2e-2 + 2e-2 * np.abs(want))))
 
     assert share(True) <= 1.0 < share(False)
+
+
+def test_ssd_wrapper_constants_are_the_kernels():
+    """The bf16 launcher's geometry in ``kernels/ssd_scan.py`` is the CUDA
+    source's: the widest head and state, the chunk count up to which no
+    pass kernel runs (the wrapper then allocates no incoming-state
+    scratch), and the state tile width NT (64 up to n = 64, else 128)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    src = (pathlib.Path(ssd.__file__).parent / "csrc"
+           / "ssd_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("MAX_P"), const("MAX_N"), const("FOLD_CHUNKS")) \
+        == (ssd.MAX_P, ssd.MAX_N, ssd.FOLD_CHUNKS)
+    assert "if (nx > 64)" in src
+    assert [ssd.state_cols(nx) for nx in (8, 40, 64, 72, 128)] \
+        == [64, 64, 64, 128, 128]
 
 
 def test_ssd_model_form_matches_reference_model_form():
