@@ -51,11 +51,11 @@
 //         block's heads (zamba2's 80 heads share one group), masked and
 //         decayed per head in registers, times x, on top of exp(csum) C
 //         in_c^T; y through shared memory to TMA stores.
-// At zamba2's (4, 512, 80, 1, 64, 64, 256) the output kernel moves ~100 MB
-// through L2 (each x tile read by every t tile at or below it, each head's
-// incoming state by each t tile of the chunk) and is bound by that and by
-// latency more than by its products (PERF.md, PR 22); the state kernel
-// reads x from device memory once.  The bf16 bar against the sequential
+// At zamba2's (4, 512, 80, 1, 64, 64, 256) the output kernel is bound by
+// latency — each block's chain of waits (its first tiles, one tile in
+// flight, the stores' drain) at three blocks an SM — more than by its
+// products or by the ~100 MB it reads through L2 (PERF.md, PR 22); the
+// state kernel reads x from device memory once.  The bf16 bar against the sequential
 // recurrence (2e-2) does not survive single bf16 roundings of the kernel's
 // float32 intermediates: the masked scores spread as sqrt(n) (~11 at
 // n = 128, 8 at 64), and a rounding of each, summed over a chunk, moves a
