@@ -157,7 +157,10 @@ replica (``--haf-requests``), a cut harvest (``--harvest-bulk``,
 (``--critic-epochs``); phase eval runs paper_table3 at 400 requests a
 replica on seeds 0..7.  The other options shrink the run for a rehearsal; the served models always run at their configs' full
 width, and at full depth but where a model does not fit one card (phase
-serve's SERVE says which depths are cut).
+serve's SERVE says which depths are cut).  ``--only model_kernels`` builds
+the kernels and runs the build report and phase model_kernels alone: run it
+from ``git archive`` copies of two trees in one session (A, B, B, A) to
+compare their model kernels on one card.
 """
 from __future__ import annotations
 
@@ -858,7 +861,11 @@ FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
                 (4, 876, 32, 8, 128),
                 (4, 511, 14, 2, 64), (4, 511, 32, 32, 80),
                 (4, 511, 16, 16, 64), (4, 1087, 32, 8, 128),
-                (SERVE_B // 2, SERVE_S, 14 // 2, 2 // 2, 64)]
+                (SERVE_B // 2, SERVE_S, 14 // 2, 2 // 2, 64),
+                # head dim 80's edges: one row, one and two whole 64-key
+                # tiles, a key past them, a GQA group of two over 11 tiles
+                (2, 1, 2, 1, 80), (1, 64, 2, 2, 80), (1, 128, 2, 2, 80),
+                (1, 129, 2, 2, 80), (2, 700, 4, 2, 80)]
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
               (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300),
@@ -883,12 +890,17 @@ SSD_TOL = 1e-4
 # bf16 ssd_scan cases beside the timed serving shape (SSD_TIMED): mamba2's
 # ragged prompt as one chunk of 300, chunks of 64 at S = 512 (eight hi / lo
 # rounded states passed on), two B / C groups, and p, n that are not
-# multiples of 16 (p = 20 is not even a multiple of 8: the wrapper pads it)
+# multiples of 16 (p = 20 is not even a multiple of 8: the wrapper pads it);
+# then the NT = 64 tiles (n <= 64 with an even count of heads a group) past
+# two chunks, where the pass kernel runs: chunks of 64, two groups, n = 48,
+# and 511 chunks of one
 SSD_TIMED = (SERVE_B, SERVE_S, 24, 1, 64, 128, 256)
 SSD_BF16_SHAPES = [SSD_TIMED, (SERVE_B, RAGGED_S, 24, 1, 64, 128, RAGGED_S),
                    (2, 512, 8, 1, 64, 128, 64), (1, 256, 8, 2, 64, 128, 64),
                    (1, 192, 3, 1, 20, 36, 64), (2, 96, 4, 2, 40, 24, 32),
-                   SSD_ZAMBA2, (SERVE_B, RAGGED_S, 80, 1, 64, 64, RAGGED_S)]
+                   SSD_ZAMBA2, (SERVE_B, RAGGED_S, 80, 1, 64, 64, RAGGED_S),
+                   (2, 512, 8, 1, 64, 64, 64), (1, 256, 8, 2, 64, 64, 64),
+                   (1, 200, 4, 1, 32, 48, 64), (4, 511, 80, 1, 64, 64, 1)]
 # the bf16 bar against the sequential recurrence (the reference's), and the
 # tolerance against ssd_scan_chunked_ref(bf16_points=True), which rounds
 # where the kernel rounds: they differ by float32 summation order, ex2.approx
@@ -946,8 +958,9 @@ def flash_bound(B, S, H, KV, d, elem):
 
 
 def ssd_bound(b, s, h, g, p, n, chunk, elem):
-    bytes_ = (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n) * elem \
-        + b * h * p * n * 4                              # + f32 final state
+    # x, y, dt, A, B, C and the final state, all in the inputs' dtype
+    bytes_ = (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+              + b * h * p * n) * elem
     flops = 0
     for c0 in range(0, s, chunk):
         l = min(chunk, s - c0)
@@ -3219,10 +3232,12 @@ def main() -> None:
     p.add_argument("--critic-epochs", type=int, default=2000,
                    help="training epochs of the critic (the reference's "
                         "2000)")
-    p.add_argument("--only", choices=("train", "mesh", "dryrun"),
+    p.add_argument("--only", choices=("model_kernels", "train", "mesh",
+                                      "dryrun"),
                    help="a rehearsal: phase env, then only this phase (no "
                         "kernels line, no ok line; kernels are built for "
-                        "mesh only)")
+                        "model_kernels, with the build report, and mesh "
+                        "only)")
     args = p.parse_args()
 
     # float32 products in full float32 everywhere (the defaults for matmul,
@@ -3235,10 +3250,13 @@ def main() -> None:
          device=kind, capability=list(torch.cuda.get_device_capability(0)),
          nvidia_smi=smi)
     if args.only:
-        if args.only == "mesh":
-            _build.build_all()
+        if args.only in ("model_kernels", "mesh"):
+            libs = _build.build_all()
             _build.load()
-        {"train": phase_train, "mesh": phase_mesh,
+        if args.only == "model_kernels":
+            phase_build(libs)
+        {"model_kernels": phase_model_kernels, "train": phase_train,
+         "mesh": phase_mesh,
          "dryrun": lambda: (sweep_alone(), phase_dryrun())}[args.only]()
         print(smi, flush=True)
         return

@@ -56,7 +56,7 @@
 //     measured and dropped: two blocks of nine warps leave 96 registers a
 //     thread (an SM partition's 16K registers over five warps), ptxas spilled
 //     and serialised the wgmma, and the kernel took 46.6 us against 28.3 us
-//     (tools/model_kernel_compare.py, PERF.md, PR 22);
+//     (PERF.md, PR 22);
 //   * a warpgroup issues P V of tile j and Q K^T of tile j + 1 back to back
 //     before it waits, skips the causal tile it does not reach, and does
 //     nothing when its 64 rows all lie past S;

@@ -32,9 +32,10 @@
 // bfloat16 (the served dtype): the state-passing form, chunks in parallel,
 // every product on the tensor cores (wgmma, bf16 in, f32 accumulate), tiles
 // by TMA over 4-D maps [b, S, h|g, p|n] (zero fill past S and past p / n),
-// the state dim padded to NT = 64 (n <= 64, zamba2's) or 128 columns (n <=
-// 128, mamba2's), so a B / C / state tile is 8 or 16 KB and a product over
-// n takes NT / 16 k-steps:
+// the state dim padded to NT = 64 (n <= 64 with an even count of heads a
+// group, zamba2's) or 128 columns (every other n <= 128, mamba2's), so a
+// B / C / state tile is 8 or 16 KB and a product over n takes NT / 16
+// k-steps:
 //   (i)   ssd_state_kernel, one warpgroup per (b*h, chunk): the chunk's
 //         cumsum and its own state delta = w^T B (M = p, N = NT, K = l);
 //         41 KB of shared memory at NT = 64, five blocks an SM, so all 640
@@ -47,7 +48,7 @@
 //         output kernel's t tile 0 blocks of the last chunk write the final
 //         state, exp(total_1) delta_0 + delta_1;
 //   (iii) ssd_out_kernel, one warpgroup per (64-row t tile, chunk, two heads
-//         of one group at NT = 64, else one): C B^T once a tile pair for the
+//         of one group at NT = 64, one at NT = 128): C B^T once a tile pair for the
 //         block's heads (zamba2's 80 heads share one group), masked and
 //         decayed per head in registers, times x, on top of exp(csum) C
 //         in_c^T; y through shared memory to TMA stores.
@@ -1029,21 +1030,19 @@ cudaError_t launch_tc_nt(const void* x, const void* dt, const void* A,
 }
 
 // the state dim's tile width NT and the heads a block of the output kernel
-// takes: two where they share a group evenly at NT = 64, else one
+// takes: NT = 64 with two heads a block where n <= 64 and the heads share a
+// group evenly (zamba2's), else NT = 128 with one (mamba2's, and every other
+// shape up to n = 128)
 cudaError_t launch_tc(const void* x, const void* dt, const void* A,
                       const void* Bm, const void* Cm, void* y, bf16* state,
                       float* cs, float* delta, float* totals, bf16* in_hi,
                       bf16* in_lo, int b, int S, int h, int g, int p, int px,
                       int n, int nx, int chunk, cudaStream_t st) {
-    if (nx > 64)
+    if (nx > 64 || (h / g) % 2)
         return launch_tc_nt<128, 1>(x, dt, A, Bm, Cm, y, state, cs, delta,
                                     totals, in_hi, in_lo, b, S, h, g, p, px,
                                     n, nx, chunk, st);
-    if ((h / g) % 2 == 0)
-        return launch_tc_nt<64, 2>(x, dt, A, Bm, Cm, y, state, cs, delta,
-                                   totals, in_hi, in_lo, b, S, h, g, p, px, n,
-                                   nx, chunk, st);
-    return launch_tc_nt<64, 1>(x, dt, A, Bm, Cm, y, state, cs, delta, totals,
+    return launch_tc_nt<64, 2>(x, dt, A, Bm, Cm, y, state, cs, delta, totals,
                                in_hi, in_lo, b, S, h, g, p, px, n, nx, chunk,
                                st);
 }

@@ -268,7 +268,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y, state = ssd_scan_cuda(x.contiguous(), dt.contiguous(), A.contiguous(),
                              B.contiguous(), C.contiguous(), chunk)
     _launches["ssd_scan"] += 1
-    return y, state.to(x.dtype)
+    return y, state
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,

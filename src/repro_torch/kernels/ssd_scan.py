@@ -30,10 +30,12 @@ MAX_N = 128
 FOLD_CHUNKS = 2
 
 
-def state_cols(nx: int) -> int:
+def state_cols(nx: int, heads_per_group: int) -> int:
     """The bf16 route's tile width NT for a state dim padded to ``nx``
-    columns: 64 up to 64, else 128 (``launch_tc`` in csrc/ssd_scan.cu)."""
-    return 64 if nx <= 64 else MAX_N
+    columns: 64 up to 64 where the heads share a group evenly (two heads a
+    block of the output kernel), else 128 (``launch_tc`` in
+    csrc/ssd_scan.cu)."""
+    return 64 if nx <= 64 and heads_per_group % 2 == 0 else MAX_N
 
 
 def _rows_of_8(t: torch.Tensor) -> torch.Tensor:
@@ -69,7 +71,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x, B, C = (_rows_of_8(t) for t in (x, B, C))
         px, nx = x.shape[-1], B.shape[-1]
         nc = -(-S // chunk)
-        tile = (b * h * nc, MAX_P, state_cols(nx))
+        tile = (b * h * nc, MAX_P, state_cols(nx, h // g))
         delta = torch.empty(tile, dtype=torch.float32, device=dev)
         totals = torch.empty(b * h * nc, dtype=torch.float32, device=dev)
         in_hi = torch.empty(tile, dtype=torch.bfloat16, device=dev)

@@ -841,8 +841,8 @@ def test_ssd_chunked_ref_single_bf16_points_miss_the_bf16_bar():
 def test_ssd_wrapper_constants_are_the_kernels():
     """The bf16 launcher's geometry in ``kernels/ssd_scan.py`` is the CUDA
     source's: the widest head and state, the chunk count up to which no
-    pass kernel runs (the wrapper then allocates no incoming-state
-    scratch), and the state tile width NT (64 up to n = 64, else 128)."""
+    pass kernel runs, and the state tile width NT of the wrapper's scratch
+    (64 up to n = 64 with an even count of heads a group, else 128)."""
     from repro_torch.kernels import ssd_scan as ssd
     src = (pathlib.Path(ssd.__file__).parent / "csrc"
            / "ssd_scan.cu").read_text()
@@ -852,9 +852,11 @@ def test_ssd_wrapper_constants_are_the_kernels():
 
     assert (const("MAX_P"), const("MAX_N"), const("FOLD_CHUNKS")) \
         == (ssd.MAX_P, ssd.MAX_N, ssd.FOLD_CHUNKS)
-    assert "if (nx > 64)" in src
-    assert [ssd.state_cols(nx) for nx in (8, 40, 64, 72, 128)] \
+    assert "if (nx > 64 || (h / g) % 2)" in src
+    assert [ssd.state_cols(nx, 2) for nx in (8, 40, 64, 72, 128)] \
         == [64, 64, 64, 128, 128]
+    assert [ssd.state_cols(nx, hpg)
+            for nx, hpg in ((40, 3), (64, 1), (64, 80))] == [128, 128, 64]
 
 
 def test_ssd_model_form_matches_reference_model_form():
