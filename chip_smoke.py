@@ -136,7 +136,7 @@ Twelve phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
-d_state 64) and times them beside PyTorch's own call for the same function
+d_state 64; flash_attention at llava's prefill, head dim 128) and times them beside PyTorch's own call for the same function
 (flash_attention in bf16, its tensor-core design, and in float32, its
 CUDA-core design; ssd_scan in bf16, its tensor-core design, held
 both to the sequential recurrence and to ssd_scan_chunked_ref with the
@@ -236,10 +236,11 @@ F64_FLOPS = 33.5e12
 BF16_TC_FLOPS = 989e12
 
 # the device kernels of each serving kernel, by a part of their names
-# (flash: the tile of a power of two, the 80-column design; ssd_scan: the
-# pass kernel runs past FOLD_CHUNKS chunks only)
+# (flash: the tile of one swizzle row, d <= 64, and the designs of d = 80
+# and d = 128; ssd_scan: the pass kernel runs past FOLD_CHUNKS chunks only)
 SERVE_KERNEL_NAMES = {"flash_attention": ("flash_tc_kernel",
-                                          "flash_tc80_kernel"),
+                                          "flash_tc80_kernel",
+                                          "flash_tc128_kernel"),
                       "ssd_scan": ("ssd_state_kernel", "ssd_pass_kernel",
                                    "ssd_out_kernel")}
 SERVE_B, SERVE_S, SERVE_STEPS, RAGGED_S = 4, 512, 32, 300
@@ -355,7 +356,8 @@ def sass_counts(lib) -> dict:
 
 
 # the bf16 tensor-core kernels of each library, by a part of their names
-TC_KERNELS = {"flash_attention": ("flash_tc_kernel", "flash_tc80_kernel"),
+TC_KERNELS = {"flash_attention": ("flash_tc_kernel", "flash_tc80_kernel",
+                                  "flash_tc128_kernel"),
               "ssd_scan": ("ssd_state_kernel", "ssd_out_kernel")}
 # the kernels fed by 1-D bulk copies (cp.async.bulk -> UBLKCP in the SASS)
 BULK_KERNELS = {"alloc_active_set": ("alloc_warp_kernel",)}
@@ -367,6 +369,13 @@ def phase_build(libs) -> None:
               for f in funcs if f.get("spill_stores") or f.get("spill_loads")]
     if spills:
         raise AssertionError(f"register spills in {spills}")
+    # a setmaxnreg that ptxas could not place leaves flash_tc128_kernel's
+    # consumers at the launch's register count
+    ignored = [f"{name}: {line.strip()}" for name in sorted(libs)
+               for line in (_build.BUILD_DIR / f"{name}.nvcc.log")
+               .read_text().splitlines() if "setmaxnreg ignored" in line]
+    if ignored:
+        raise AssertionError(f"ptxas ignored setmaxnreg: {ignored}")
     report = {}
     for lib, kernels in TC_KERNELS.items():
         sass = sass_counts(libs[lib])
@@ -865,15 +874,22 @@ FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
                 # head dim 80's edges: one row, one and two whole 64-key
                 # tiles, a key past them, a GQA group of two over 11 tiles
                 (2, 1, 2, 1, 80), (1, 64, 2, 2, 80), (1, 128, 2, 2, 80),
-                (1, 129, 2, 2, 80), (2, 700, 4, 2, 80)]
+                (1, 129, 2, 2, 80), (2, 700, 4, 2, 80),
+                # head dim 128's: one row, one and two whole 128-row blocks
+                # (the second half-filled), a key past them, a GQA group of
+                # four over nine 128-key tiles
+                (2, 1, 4, 1, 128), (1, 64, 4, 1, 128), (1, 128, 4, 1, 128),
+                (1, 129, 4, 1, 128), (2, 700, 8, 2, 128)]
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
               (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300),
               (4, 512, 80, 1, 64, 64, 256), (4, 300, 80, 1, 64, 64, 300),
               (4, 511, 24, 1, 64, 128, 1), (4, 511, 80, 1, 64, 64, 1)]
 # zamba2-2.7b's serving shapes: 32 heads of 80 (GQA 1:1) in its shared
-# attention; 80 SSD heads of 64 with d_state 64 and one group
+# attention; 80 SSD heads of 64 with d_state 64 and one group; llava's
+# prefill, 576 patches + 512 tokens over 32 heads of 128 (GQA 32:8)
 FLASH_ZAMBA2 = (SERVE_B, SERVE_S, 32, 32, 80)
+FLASH_LLAVA = (SERVE_B, 576 + SERVE_S, 32, 8, 128)
 SSD_ZAMBA2 = (SERVE_B, SERVE_S, 80, 1, 64, 64, 256)
 # tests/test_kernels.py's shapes, qwen2's width (the timed case, 2048 rows
 # of 896), a tail that is not a whole vector and rows that start unaligned
@@ -982,7 +998,7 @@ def bound_of(bytes_, flops, peak):
             "bytes": bytes_, "flops": flops, "peak_flops": peak}
 
 
-def flash_record(shape, errs):
+def flash_record(shape, errs, plain_iters: int = 20):
     """flash_attention at one causal shape: bf16 (tensor cores) and float32
     (CUDA cores) times beside the plain version and sdpa, the bf16 kernel's
     device time by torch.profiler, the bf16 bound, and the largest errors
@@ -991,7 +1007,8 @@ def flash_record(shape, errs):
     q32, k32, v32 = flash_inputs(0, *shape, torch.float32)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     err = errs[shape]
-    # one device kernel a call: flash_tc_kernel<d>, or flash_tc80_kernel
+    # one device kernel a call: flash_tc_kernel<d>, flash_tc80_kernel or
+    # flash_tc128_kernel
     prof, _, dropped = profiled(lambda: ops.flash_attention(q, k, v),
                                 ("flash_tc",))
     return {
@@ -1004,7 +1021,7 @@ def flash_record(shape, errs):
         "ms": median_ms(lambda: ops.flash_attention(q, k, v)),
         "ms_f32": median_ms(lambda: ops.flash_attention(q32, k32, v32)),
         "plain_ms": median_ms(lambda: ref.attention_ref(
-            q.float(), k.float(), v.float()).to(q.dtype), iters=20),
+            q.float(), k.float(), v.float()).to(q.dtype), iters=plain_iters),
         "library_ms": median_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
@@ -1081,7 +1098,9 @@ def phase_model_kernels():
                   "f32 inputs): FMAs on the CUDA cores",
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True) on [B,H,S,d] views",
-        "zamba2": flash_record(FLASH_ZAMBA2, errs)}
+        "zamba2": flash_record(FLASH_ZAMBA2, errs),
+        # the plain version holds 0.6 GB of float32 scores a call
+        "llava": flash_record(FLASH_LLAVA, errs, plain_iters=5)}
 
     # ssd_scan: float32 (the CUDA-core kernel) at 1e-4 against the sequential
     # recurrence; bf16 (the tensor-core kernels) at 2e-2 against it and at
@@ -2302,12 +2321,15 @@ def serve_one(sv: Served):
         return float(np.median(walls))
     pre_med = prefill_ms(mk)
     pre_med_x = pre_med if same_path else prefill_ms(mx)
-    wall, per, _ = device_times(lambda: mk.prefill(params, batch))
+    wall, per, calls = device_times(lambda: mk.prefill(params, batch))
     busy = sum(per.values()) / 1e3
     names = SERVE_KERNEL_NAMES.get(sv.kernel, ())
     kern = sum(t for k, t in per.items() if any(part in k for part in names))
     profile_rec = {"wall_ms": wall, "device_busy_ms": busy,
                    "kernel_device_ms": kern / 1e3,
+                   "kernel_device_launches": {
+                       part: sum(c for k, c in calls.items() if part in k)
+                       for part in names},
                    "device_idle_share": 1.0 - busy / wall if per else None,
                    "note": "one prefill under torch.profiler (its host "
                            "overhead included in wall_ms)"}
@@ -3343,7 +3365,8 @@ def main() -> None:
                  "launches on its shard)"),
              launches_by_path={**served["flash_attention"],
                                "mesh_prefill": mesh_launches},
-             at_zamba2=mk["flash_attention"]["zamba2"]),
+             at_zamba2=mk["flash_attention"]["zamba2"],
+             at_llava=mk["flash_attention"]["llava"]),
         dict(row("ssd_scan", mk["ssd_scan"], sum(served["ssd_scan"].values()),
                  "src/repro/kernels/ssd_scan.py:25",
                  mk["ssd_scan"]["tolerance"],

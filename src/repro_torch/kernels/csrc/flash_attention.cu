@@ -26,8 +26,7 @@
 // [B, S, heads, D], so rows past S within one batch row read as zeros) into
 // a two-stage K/V ring whose mbarriers the block waits on; tile j+1 is in
 // flight while tile j is multiplied.  The TMA swizzle (32, 64 or 128 B: one
-// row of D <= 64, half a row at D = 128) is the one the wgmma descriptors
-// name.  Only the diagonal tile (and the ragged last one) is masked
+// row of D <= 64) is the one the wgmma descriptors name.  Only the diagonal tile (and the ragged last one) is masked
 // element-wise; log2(e) is folded into the scale, so each score costs one
 // FFMA and one EX2; m, l and acc are f32 registers; P is rounded to bf16
 // before P V, the rounding of the reference's own oracle
@@ -64,6 +63,30 @@
 //     writes, to two TMA stores, which drop the rows past S.
 // Its arithmetic is the other head dims'.
 //
+// bfloat16 at D = 128 (llava's 32 heads over 8 KV heads, 576 patches + 512
+// tokens), flash_tc128_kernel: at (4, 1088, 32, 8, 128) the work is 89 MB
+// and 38.8 GFLOP causal, bound by operations (39.3 us at 989 TFLOP/s, 26.6
+// us by bytes): what a launch pays for is the time the tensor cores stand
+// idle.  So the d = 80 design at 128 columns (a row is two 64-column boxes
+// at the 128-byte swizzle; 128 q rows a block in two consumer warpgroups
+// sharing each K / V tile through full / empty mbarriers; the output by TMA
+// store), and then what one block an SM can afford:
+//   * a producer warpgroup whose one thread keeps a two-stage ring of
+//     128-key tiles full; it gives its registers up (setmaxnreg to 40) and
+//     the two consumer warpgroups take them (232), for the 64 score, 64
+//     output and 32 P registers a thread of an m64n128 product needs;
+//   * Q K^T as m64n128 (eight k16 steps) and P V as eight m64n128 steps
+//     with P from registers; a warpgroup issues Q K^T of tile j + 1 before
+//     P V of tile j and runs the softmax of j + 1 as soon as the first is
+//     done, under the second;
+//   * ping-pong: two named barriers let the warpgroups issue their products
+//     in turn, so one's softmax runs under the other's products;
+//   * both warpgroups walk the same tiles (the diagonal 128-key tile is the
+//     last of each), skip all tiles above it, and a block whose second
+//     warpgroup holds no row (S = 1088 ends half way into a block) runs the
+//     first alone, without ping-pong.
+// Its arithmetic is the other head dims'.
+//
 // float32: the products stay f32 FMAs on the CUDA cores (inputs staged in
 // shared memory, each thread a 4 x 8 patch of the score tile and a 4 x D/8
 // patch of the output, P through shared memory): the f32 case is held to
@@ -77,13 +100,6 @@ constexpr int BQ = 64;            // q rows per block
 constexpr int BK = 64;            // keys per k tile
 constexpr int THREADS = 128;      // one warpgroup
 constexpr float NEG = -1e30f;
-
-// the bf16 route's shared-memory tile width for head dim D (D = 80 has a
-// design of its own): a row of D bf16 is 32, 64 or 128 bytes, or two
-// 128-byte boxes
-__host__ __device__ constexpr int tile_dim(int D) {
-    return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
-}
 
 // --------------------------------------------------------------------------
 // float32: CUDA cores
@@ -261,10 +277,12 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // bfloat16: tensor cores (wgmma) fed by TMA (helpers in hopper.cuh)
 // --------------------------------------------------------------------------
 // Q tile, then two K/V stages, then three mbarriers; +1024 to align the
-// base to the 128-byte swizzle's 1024-byte repeat.
+// base to the 128-byte swizzle's 1024-byte repeat.  A row of D <= 64 bf16
+// is one swizzle row (32, 64 or 128 bytes); D = 80 and D = 128 have designs
+// of their own.
 template <int D>
 constexpr int tc_smem_bytes() {
-    return 5 * Tile<tile_dim(D)>::BYTES + 1024 + 64;
+    return 5 * Tile<D>::BYTES + 1024 + 64;
 }
 
 template <int D>
@@ -274,8 +292,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_v,
                 bf16* __restrict__ o, int S, int H, int KV, float scale_log2,
                 int causal) {
-    constexpr int TD = tile_dim(D);
-    using T = Tile<TD>;
+    static_assert(D == 16 || D == 32 || D == 64, "one swizzle row of D");
+    using T = Tile<D>;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t sQ = base;
@@ -302,10 +320,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     __syncthreads();
     if (tid == 0) {
         mbar_expect_tx(barQ, T::BYTES);
-        tma_tile<TD>(&map_q, sQ, barQ, h, q0, b);
+        tma_tile<D>(&map_q, sQ, barQ, h, q0, b);
         mbar_expect_tx(barQ + 8, 2 * T::BYTES);
-        tma_tile<TD>(&map_k, base + T::BYTES, barQ + 8, kvh, 0, b);
-        tma_tile<TD>(&map_v, base + 2 * T::BYTES, barQ + 8, kvh, 0, b);
+        tma_tile<D>(&map_k, base + T::BYTES, barQ + 8, kvh, 0, b);
+        tma_tile<D>(&map_v, base + 2 * T::BYTES, barQ + 8, kvh, 0, b);
     }
 
     float acc[D / 2];
@@ -324,13 +342,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
             const uint32_t nK = base + (3 - 2 * st) * T::BYTES;
             const uint32_t nbar = barQ + 8 * (2 - st);
             mbar_expect_tx(nbar, 2 * T::BYTES);
-            tma_tile<TD>(&map_k, nK, nbar, kvh, (j + 1) * BK, b);
-            tma_tile<TD>(&map_v, nK + T::BYTES, nbar, kvh, (j + 1) * BK, b);
+            tma_tile<D>(&map_k, nK, nbar, kvh, (j + 1) * BK, b);
+            tma_tile<D>(&map_v, nK + T::BYTES, nbar, kvh, (j + 1) * BK, b);
         }
         mbar_wait(barQ + 8 * (1 + st), (j >> 1) & 1);
 
-        // S = Q K^T: D / 16 steps of k16 over the head dim (the zero
-        // columns of a wider tile are not read)
+        // S = Q K^T: D / 16 steps of k16 over the head dim
         float s[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = 0.0f;
@@ -338,8 +355,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-            const int col = kk * 16;                 // head-dim column
-            const uint32_t off = (col / T::BOX) * T::BOX_B + (col % T::BOX) * 2;
+            const uint32_t off = kk * 32;           // head-dim column 16 kk
             wgmma_ss_n64(s, make_desc(sQ + off, 16, T::ATOM_B, T::LAYOUT),
                          make_desc(sK + off, 16, T::ATOM_B, T::LAYOUT), kk > 0);
         }
@@ -708,14 +724,371 @@ cudaError_t launch_tc80(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// bfloat16 at head dim 128: 128 q rows a block in two consumer warpgroups
+// that share each K / V tile, fed by a producer warpgroup
+// --------------------------------------------------------------------------
+// The D = 128 tile plan: the TMA boxes of one row of 128 columns, each
+// {columns, swizzle row bytes} — two 64-column boxes at the 128-byte
+// swizzle; no column is zero fill.
+constexpr int D128_BOX_COLS[2] = {64, 64};
+constexpr int D128_BOX_ROW_B[2] = {128, 128};
+static_assert(D128_BOX_COLS[0] + D128_BOX_COLS[1] == 128
+              && D128_BOX_COLS[0] * 2 == D128_BOX_ROW_B[0]
+              && D128_BOX_COLS[1] * 2 == D128_BOX_ROW_B[1],
+              "the D = 128 boxes cover 128 columns, each one swizzle row");
+// The plan's measured alternatives stay build-time switches, so that
+// tools/flash128_variants.py can build each one beside the kept plan:
+// keys a tile (64: Q K^T as m64n64, 128: as m64n128), ring stages, a
+// producer warpgroup (else thread 0 refills the ring between its own
+// products), ping-pong of the two consumer warpgroups' products, and the
+// softmax of tile j + 1 run while P V of tile j is in flight.
+#ifndef REPRO_FLASH128_KEYS
+#define REPRO_FLASH128_KEYS 128
+#endif
+#ifndef REPRO_FLASH128_STAGES
+#define REPRO_FLASH128_STAGES 2
+#endif
+#ifndef REPRO_FLASH128_PRODUCER
+#define REPRO_FLASH128_PRODUCER 1
+#endif
+#ifndef REPRO_FLASH128_PINGPONG
+#define REPRO_FLASH128_PINGPONG 1
+#endif
+#ifndef REPRO_FLASH128_OVERLAP
+#define REPRO_FLASH128_OVERLAP 1
+#endif
+constexpr int D128_BK = REPRO_FLASH128_KEYS;       // keys a k tile
+constexpr int D128_STAGES = REPRO_FLASH128_STAGES; // K/V ring depth
+constexpr bool D128_PRODUCER = REPRO_FLASH128_PRODUCER;
+constexpr bool D128_PINGPONG = REPRO_FLASH128_PINGPONG;
+constexpr bool D128_OVERLAP = REPRO_FLASH128_OVERLAP;
+static_assert(D128_BK == 64 || D128_BK == 128, "Q K^T is m64n64 or m64n128");
+static_assert(!D128_PINGPONG || D128_BK == 128,
+              "ping-pong needs both warpgroups to walk the same tiles");
+constexpr int D128_WG = 2;                         // consumer warpgroups
+constexpr int D128_BQ = 64 * D128_WG;              // q rows a block
+constexpr int D128_THREADS = 128 * (D128_WG + D128_PRODUCER);
+// registers a thread once the producer warpgroup has given its up:
+// 128 x 40 + 256 x 232 = 64 512 of the SM's 65 536
+constexpr int D128_PRODUCER_REGS = 40, D128_CONSUMER_REGS = 232;
+constexpr int D128_ROW_B = D128_BOX_ROW_B[0];      // a box's row: 128 B
+constexpr int D128_BOX_B = 64 * D128_ROW_B;         // 64 rows of a box: 8 KB
+constexpr int D128_QTILE = 2 * D128_BOX_B;          // 64 q rows: 16 KB
+constexpr int D128_KBOX = D128_BK * D128_ROW_B;     // BK rows of a box
+constexpr int D128_KVTILE = 2 * D128_KBOX;          // BK keys of K (or V)
+constexpr int D128_NS = D128_BK / 2;                // score registers
+// Q (one tile a warpgroup, reused for the output), the K/V ring, then
+// 1 + 2 STAGES mbarriers, and alignment: 160 KB, one block an SM
+constexpr int D128_SMEM = D128_WG * D128_QTILE
+    + 2 * D128_STAGES * D128_KVTILE + 1024 + 8 * (1 + 2 * D128_STAGES);
+static_assert(D128_SMEM <= 232448, "one block's shared memory");
+
+// S = Q K^T over the 128 columns: eight k16 steps, four in each box (Q's
+// box holds 64 rows, K's BK); K is one N = BK operand of BK / 8 atoms
+__device__ __forceinline__ void qk128(float (&s)[D128_NS], uint32_t sQ,
+                                      uint32_t sK) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t col = (kk & 3) * 32;
+        const uint64_t dq = make_desc(sQ + (kk >> 2) * D128_BOX_B + col, 16,
+                                      1024, 1);
+        const uint64_t dk = make_desc(sK + (kk >> 2) * D128_KBOX + col, 16,
+                                      1024, 1);
+        if constexpr (D128_BK == 128) wgmma_ss_n128(s, dq, dk, kk > 0);
+        else wgmma_ss_n64(s, dq, dk, kk > 0);
+    }
+}
+
+__global__ void __launch_bounds__(D128_THREADS, 1)
+flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_o, int S, int H,
+                   int KV, float scale_log2, int causal) {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+    const uint32_t sKV = base + D128_WG * D128_QTILE;  // stage st: K, then V
+    const uint32_t barQ = sKV + 2 * D128_STAGES * D128_KVTILE;
+    // full[st] at barQ + 8 (1 + st), empty[st] at barQ + 8 (1 + STAGES + st)
+
+    const int tid = threadIdx.x;
+    const int bh = blockIdx.x;
+    const int b = bh / H, h = bh % H;
+    const int kvh = h / (H / KV);
+    const int qt = gridDim.y - 1 - blockIdx.y;      // longest tiles first
+    const int q0 = qt * D128_BQ;
+    const int n_k_all = (S + D128_BK - 1) / D128_BK;
+    const int n_k = causal ? (min(q0 + D128_BQ, S) - 1) / D128_BK + 1
+                           : n_k_all;
+    const int n_wg = q0 + 64 < S ? 2 : 1;            // warpgroups with rows
+
+    if (tid == 0) {
+        mbar_init(barQ, 1);
+        for (int st = 0; st < D128_STAGES; ++st) {
+            mbar_init(barQ + 8 * (1 + st), 1);
+            mbar_init(barQ + 8 * (1 + D128_STAGES + st), 4 * n_wg);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // both Q tiles (rows past S arrive as zeros), and K / V tile j into
+    // stage j % STAGES: BK / 64 row boxes in each of the two column boxes
+    auto load_q = [&]() {
+        mbar_expect_tx(barQ, D128_WG * D128_QTILE);
+        for (int w = 0; w < D128_WG; ++w)
+            for (int c = 0; c < 2; ++c)
+                tma_load(&map_q, base + w * D128_QTILE + c * D128_BOX_B, barQ,
+                         64 * c, h, q0 + 64 * w, b);
+    };
+    auto load_kv = [&](int j) {
+        const int st = j % D128_STAGES;
+        const uint32_t full = barQ + 8 * (1 + st);
+        const uint32_t sK = sKV + 2 * st * D128_KVTILE;
+        mbar_expect_tx(full, 2 * D128_KVTILE);
+        for (int c = 0; c < 2; ++c)
+            for (int r = 0; r < D128_BK / 64; ++r) {
+                const uint32_t off = c * D128_KBOX + r * D128_BOX_B;
+                const int s0 = j * D128_BK + 64 * r;
+                tma_load(&map_k, sK + off, full, 64 * c, kvh, s0, b);
+                tma_load(&map_v, sK + D128_KVTILE + off, full, 64 * c, kvh,
+                         s0, b);
+            }
+    };
+
+    auto consume = [&]() {
+        const int wg = tid >> 7;
+        if (wg >= n_wg) return;                       // rows all past S
+        const int warp = (tid >> 5) & 3, lane = tid & 31;
+        const int g = lane >> 2, t = lane & 3;        // fragment row / col pair
+        const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+        // its tiles: up to the diagonal one, where it is masked
+        const int n = causal ? (min(q0 + 64 * wg + 64, S) - 1) / D128_BK + 1
+                             : n_k_all;
+        const uint32_t sQ = base + wg * D128_QTILE;
+        // ping-pong: named barrier 3 + w lets warpgroup w issue its next
+        // products, the other arrives at it once it has issued its own;
+        // warpgroup 0 goes first, and warpgroup 1 skips its last arrival,
+        // which nobody would wait for
+        const bool pingpong = D128_PINGPONG && n_wg == 2;
+        const uint32_t my_turn = 3 + wg, their_turn = 4 - wg;
+        if (pingpong && wg == 1) named_arrive(3, 256);
+
+        // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1);
+        // s the same over keys
+        float acc[64], s[D128_NS];
+        uint32_t pa[D128_BK / 16][4];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+        float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+        float a0, a1, rs0, rs1;
+
+        // mask the diagonal / ragged tile j, online softmax (m in score
+        // units, p = 2^(s * scale_log2 - m * scale_log2)): p into s, the
+        // rescale of the earlier tiles into a0 / a1, this lane's row sums
+        // into rs0 / rs1
+        auto softmax = [&](int j) {
+            const int k0 = j * D128_BK;
+            const bool masked = (causal && j == n - 1) || k0 + D128_BK > S;
+            float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+            for (int i = 0; i < D128_NS; ++i) {
+                if (masked) {
+                    const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+                    const int qp = (i & 2) ? row1 : row0;
+                    if (kp >= S || (causal && kp > qp)) s[i] = NEG;
+                }
+                if (i & 2) mx1 = fmaxf(mx1, s[i]);
+                else mx0 = fmaxf(mx0, s[i]);
+            }
+            // a row's keys lie in the 4 lanes of one quad
+            mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 1));
+            mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 2));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 1));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 2));
+            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+            a0 = ex2((m0 - mn0) * scale_log2);
+            a1 = ex2((m1 - mn1) * scale_log2);
+            m0 = mn0;
+            m1 = mn1;
+            const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+            rs0 = 0.0f;
+            rs1 = 0.0f;
+#pragma unroll
+            for (int i = 0; i < D128_NS; ++i) {
+                const float p = ex2(fmaf(s[i], scale_log2,
+                                         (i & 2) ? off1 : off0));
+                s[i] = p;
+                if (i & 2) rs1 += p;
+                else rs0 += p;
+            }
+        };
+        // the rescale once P V of the earlier tiles has landed, and P
+        // rounded to bf16 as the A fragments of the next P V, pairwise from
+        // the score accumulator
+        auto rescale_and_pack = [&]() {
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] *= (i & 2) ? a1 : a0;
+            l0 = l0 * a0 + rs0;       // this lane's share; the quad sums last
+            l1 = l1 * a1 + rs1;
+#pragma unroll
+            for (int kk = 0; kk < D128_BK / 16; ++kk) {
+                pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+                pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+                pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+                pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+            }
+        };
+
+        mbar_wait(barQ, 0);
+        mbar_wait(barQ + 8, 0);
+        if (pingpong) named_sync(my_turn, 256);
+        fence_regs(s);
+        wgmma_fence();
+        qk128(s, sQ, sKV);
+        wgmma_commit();
+        if (pingpong) named_arrive(their_turn, 256);
+        wgmma_wait_all();
+        fence_regs(s);
+        softmax(0);
+        rescale_and_pack();
+
+        // tile j: Q K^T of tile j + 1 and P V of tile j issued together;
+        // the softmax of j + 1 runs once the first is done, under the second
+        for (int j = 0; j < n; ++j) {
+            const int st = j % D128_STAGES;
+            const bool more = j + 1 < n;
+            const uint32_t sV = sKV + (2 * st + 1) * D128_KVTILE;
+            if (more) {
+                const int nst = (j + 1) % D128_STAGES;
+                mbar_wait(barQ + 8 * (1 + nst), ((j + 1) / D128_STAGES) & 1);
+            }
+            if (pingpong) named_sync(my_turn, 256);
+            fence_regs(s);
+            fence_regs(acc);
+            fence_regs(pa);
+            wgmma_fence();
+            if (more) {
+                qk128(s, sQ, sKV + 2 * ((j + 1) % D128_STAGES) * D128_KVTILE);
+                wgmma_commit();
+            }
+#pragma unroll
+            for (int kk = 0; kk < D128_BK / 16; ++kk)   // keys 16 kk ..
+                wgmma_rs_n128(acc, pa[kk],
+                              make_desc(sV + kk * 16 * D128_ROW_B,
+                                        D128_KBOX, 1024, 1));
+            wgmma_commit();
+            if (pingpong && (more || wg == 0)) named_arrive(their_turn, 256);
+            if (more) {
+                if constexpr (D128_OVERLAP) wgmma_wait_1();
+                else wgmma_wait_all();
+                fence_regs(s);
+                softmax(j + 1);
+            }
+            wgmma_wait_all();
+            fence_regs(acc);
+            fence_regs(pa);
+            if (lane == 0) mbar_arrive(barQ + 8 * (1 + D128_STAGES + st));
+            if (!D128_PRODUCER && tid == 0 && j + D128_STAGES < n_k) {
+                mbar_wait(barQ + 8 * (1 + D128_STAGES + st),
+                          (j / D128_STAGES) & 1);
+                load_kv(j + D128_STAGES);
+            }
+            if (more) rescale_and_pack();
+        }
+
+        l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
+        l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
+        l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
+        l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
+        const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+
+        // epilogue: O into this warpgroup's Q tile (its last reader, Q K^T,
+        // is done) in the layout TMA loads write — a row's 16-byte pieces
+        // permuted by the 128-byte swizzle, piece ^= row % 8, in each box —
+        // then two TMA stores, which drop the rows past S
+        named_sync(1 + wg, 128);
+        uint8_t* gQ = gbase + (sQ - base);
+        const int r0 = 16 * warp + g, r1 = r0 + 8;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+            uint8_t* box = gQ + (c >> 3) * D128_BOX_B + 4 * t;
+            *reinterpret_cast<__nv_bfloat162*>(
+                box + r0 * 128 + (((c & 7) ^ (r0 & 7)) << 4)) =
+                __floats2bfloat162_rn(acc[4 * c] / den0,
+                                      acc[4 * c + 1] / den0);
+            *reinterpret_cast<__nv_bfloat162*>(
+                box + r1 * 128 + (((c & 7) ^ (r1 & 7)) << 4)) =
+                __floats2bfloat162_rn(acc[4 * c + 2] / den1,
+                                      acc[4 * c + 3] / den1);
+        }
+        fence_proxy_async();
+        named_sync(1 + wg, 128);
+        if ((tid & 127) == 0) {
+            tma_store(&map_o, sQ, 0, h, q0 + 64 * wg, b);
+            tma_store(&map_o, sQ + D128_BOX_B, 64, h, q0 + 64 * wg, b);
+            tma_store_drain();
+        }
+    };
+
+    // one if / else, never rejoined, so that ptxas holds each side to its
+    // own register count
+    if constexpr (D128_PRODUCER) {
+        if (tid >= 128 * D128_WG) {
+            // the producer warpgroup: one thread keeps the ring full
+            setmaxnreg_dec<D128_PRODUCER_REGS>();
+            if (tid == 128 * D128_WG) {
+                load_q();
+                for (int j = 0; j < n_k; ++j) {
+                    if (j >= D128_STAGES)
+                        mbar_wait(barQ + 8 * (1 + D128_STAGES
+                                              + j % D128_STAGES),
+                                  (j / D128_STAGES - 1) & 1);
+                    load_kv(j);
+                }
+            }
+        } else {
+            setmaxnreg_inc<D128_CONSUMER_REGS>();
+            consume();
+        }
+    } else {
+        if (tid == 0) {
+            load_q();
+            for (int j = 0; j < n_k && j < D128_STAGES; ++j) load_kv(j);
+        }
+        consume();
+    }
+}
+
+cudaError_t launch_tc128(const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int KV, float scale,
+                         int causal, cudaStream_t st) {
+    if (reinterpret_cast<uintptr_t>(o) & 15) return cudaErrorMisalignedAddress;
+    CUtensorMap mq, mk, mv, mo;
+    if (!make_map<64>(&mq, q, B, S, H, 128)
+        || !make_map<64>(&mk, k, B, S, KV, 128)
+        || !make_map<64>(&mv, v, B, S, KV, 128)
+        || !make_map<64>(&mo, o, B, S, H, 128))
+        return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_tc128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        D128_SMEM);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(B * H, (S + D128_BQ - 1) / D128_BQ);
+    flash_tc128_kernel<<<grid, D128_THREADS, D128_SMEM, st>>>(
+        mq, mk, mv, mo, S, H, KV, scale * 1.4426950408889634f, causal);
+    return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int H, int KV, float scale, int causal,
                       cudaStream_t st) {
     CUtensorMap mq, mk, mv;
-    constexpr int TD = tile_dim(D);
-    if (!make_map<TD>(&mq, q, B, S, H, D) || !make_map<TD>(&mk, k, B, S, KV, D)
-        || !make_map<TD>(&mv, v, B, S, KV, D))
+    if (!make_map<D>(&mq, q, B, S, H, D) || !make_map<D>(&mk, k, B, S, KV, D)
+        || !make_map<D>(&mv, v, B, S, KV, D))
         return cudaErrorInvalidValue;
     constexpr int bytes = tc_smem_bytes<D>();
     cudaError_t e = cudaFuncSetAttribute(
@@ -729,13 +1102,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
 }
 
-// head dim 80 takes its own design (flash_tc80_kernel), not the tile of a
-// power of two
+// head dims 80 and 128 take designs of their own (flash_tc80_kernel,
+// flash_tc128_kernel)
 template <>
 cudaError_t launch_tc<80>(const void* q, const void* k, const void* v,
                           void* o, int B, int S, int H, int KV, float scale,
                           int causal, cudaStream_t st) {
     return launch_tc80(q, k, v, o, B, S, H, KV, scale, causal, st);
+}
+
+template <>
+cudaError_t launch_tc<128>(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int KV, float scale,
+                           int causal, cudaStream_t st) {
+    return launch_tc128(q, k, v, o, B, S, H, KV, scale, causal, st);
 }
 
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,

@@ -109,6 +109,23 @@ __device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// arrives at named barrier `id` of `threads` threads without waiting: the
+// other side of a named_sync by the rest of them
+__device__ __forceinline__ void named_arrive(uint32_t id, uint32_t threads) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// this warpgroup's registers a thread, lowered or raised to R (a multiple of
+// 8 in [24, 256]); every warp of the warpgroup executes it
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
 // one 1-D bulk copy of `bytes` contiguous bytes, global -> shared, completing
 // as transaction bytes on `bar`; no tensor map.  `bytes`, `src` and `dst`
 // must all be multiples of 16 (the copy is never rounded up past the end)
@@ -151,12 +168,25 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// waits for every committed group but the newest
+__device__ __forceinline__ void wgmma_wait_1() {
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // keeps the compiler from moving accumulator reads / writes across the
 // asynchronous wgmma region
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+// the same for a wgmma's A fragments in registers, which it reads
+// asynchronously: they stay in place until the fence after its wait
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory
@@ -200,6 +230,40 @@ __device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da,
           "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
           "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
         : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], both from shared memory,
+// K-major (as wgmma_ss_n64, 128 columns of keys)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D[64 x 128] += A[64 x 16] . B[16 x 128], both from shared memory and both
@@ -352,10 +416,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
+    static_assert(D == 16 || D == 32 || D == 64, "one swizzle row of D");
     if constexpr (D == 16) wgmma_rs_n16(d, a, db);
     else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
-    else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-    else wgmma_rs_n128(d, a, db);
+    else wgmma_rs_n64(d, a, db);
 }
 
 // 2^x by the SFU (flushes denormal results to 0; 2^(-huge) is 0)

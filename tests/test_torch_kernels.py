@@ -662,12 +662,15 @@ def _flash_key_tile(src: str) -> int:
 
 
 def _hold_tiles_emulation(B, S, H, KV, d, causal, block=64):
+    """The emulation at key tile ``block`` against the Pallas kernel (in
+    blocks of 128, or one block of S) and the float32 oracle."""
     rng = np.random.default_rng(B * 1000 + S + H + 7)
     q, k, v = (_normal(rng, (B, S, n, d)) for n in (H, KV, KV))
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
-    block = 128 if S % 128 == 0 else S
+    pallas_block = 128 if S % 128 == 0 else S
     pallas = np.asarray(ref_ops.flash_attention(
-        jq, jk, jv, causal=causal, block_q=block, block_k=block), np.float32)
+        jq, jk, jv, causal=causal, block_q=pallas_block,
+        block_k=pallas_block), np.float32)
     oracle = np.asarray(ref_kref.attention_ref(
         *(a.astype(jnp.float32) for a in (jq, jk, jv)), causal=causal))
     got = _flash_tiles_emulation(
@@ -719,6 +722,49 @@ def test_flash_head_dim_80_tile_plan_is_exactly_80_columns():
                for c, r in zip(cols, row_b))
     assert _flash_key_tile(src) == 64
     assert re.search(r"constexpr int D80_BK = BK;", src)
+
+
+def _flash128_key_tile(src: str) -> int:
+    """The d = 128 route's key tile (``REPRO_FLASH128_KEYS``'s default)."""
+    return int(re.search(r"#define REPRO_FLASH128_KEYS (\d+)", src).group(1))
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("B,S,H,KV", [(1, 300, 8, 2), (2, 256, 4, 1),
+                                      (1, 77, 4, 1)])
+def test_flash_attention_bf16_d128_route_matches_reference(B, S, H, KV,
+                                                           causal):
+    """Head dim 128's own route (``flash_tc128_kernel``), emulated at its
+    key tile, against the reference's Pallas kernel in bf16 (interpret) and
+    its float32 oracle at the bf16 bar: llava's GQA 4:1 at a ragged 300 (a
+    128-row block whose second warpgroup holds no row), two whole 128-row
+    blocks, and 77 rows (a block whose second warpgroup holds 13)."""
+    _hold_tiles_emulation(B, S, H, KV, 128, causal,
+                          _flash128_key_tile(_flash_source()))
+
+
+def test_flash_head_dim_128_tile_plan_is_two_full_boxes():
+    """The d = 128 route's tile plan in ``csrc/flash_attention.cu``: its TMA
+    boxes' columns sum to 128, each box's columns fill its swizzle row, its
+    key tile is a whole number of the boxes' 64 rows and is the one the
+    emulation above takes, and ``launch_tc<128>`` reaches
+    ``flash_tc128_kernel``: no head dim is left on the d <= 64 tile."""
+    src = _flash_source()
+    cols = [int(c) for c in re.search(
+        r"D128_BOX_COLS\[2\] = \{(\d+), (\d+)\}", src).groups()]
+    row_b = [int(c) for c in re.search(
+        r"D128_BOX_ROW_B\[2\] = \{(\d+), (\d+)\}", src).groups()]
+    assert sum(cols) == 128
+    assert all(r in (32, 64, 128) and 2 * c == r
+               for c, r in zip(cols, row_b))
+    keys = _flash128_key_tile(src)
+    assert keys in (64, 128)
+    assert re.search(r"constexpr int D128_BK = REPRO_FLASH128_KEYS;", src)
+    launcher = re.search(r"cudaError_t launch_tc<128>\(.*?\n}", src,
+                         re.S).group(0)
+    assert "launch_tc128(" in launcher
+    assert re.search(r"static_assert\(D == 16 \|\| D == 32 \|\| D == 64",
+                     src)
 
 
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
