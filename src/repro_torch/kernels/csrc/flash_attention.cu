@@ -785,18 +785,82 @@ constexpr int D128_SMEM = D128_WG * D128_QTILE
 static_assert(D128_SMEM <= 232448, "one block's shared memory");
 
 // S = Q K^T over the 128 columns: eight k16 steps, four in each box (Q's
-// box holds 64 rows, K's BK); K is one N = BK operand of BK / 8 atoms
-__device__ __forceinline__ void qk128(float (&s)[D128_NS], uint32_t sQ,
+// box holds 64 rows, K's NK); K is one N = NK operand of NK / 8 atoms
+template <int NK>
+__device__ __forceinline__ void qk128(float (&s)[NK / 2], uint32_t sQ,
                                       uint32_t sK) {
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
         const uint32_t col = (kk & 3) * 32;
         const uint64_t dq = make_desc(sQ + (kk >> 2) * D128_BOX_B + col, 16,
                                       1024, 1);
-        const uint64_t dk = make_desc(sK + (kk >> 2) * D128_KBOX + col, 16,
-                                      1024, 1);
-        if constexpr (D128_BK == 128) wgmma_ss_n128(s, dq, dk, kk > 0);
+        const uint64_t dk = make_desc(sK + (kk >> 2) * NK * D128_ROW_B + col,
+                                      16, 1024, 1);
+        if constexpr (NK == 128) wgmma_ss_n128(s, dq, dk, kk > 0);
         else wgmma_ss_n64(s, dq, dk, kk > 0);
+    }
+}
+
+// Mask the diagonal / ragged tile whose first key is k0 (where `masked`),
+// then the online softmax over it (m in score units, p = 2^(s * scale_log2
+// - m * scale_log2)): p into s, the rescale of the earlier tiles into a0 /
+// a1, this lane's row sums into rs0 / rs1.  s[4c + e] is row (e < 2 ? row0
+// : row1), key k0 + 8c + 2t + (e & 1).
+template <int NS>
+__device__ __forceinline__ void softmax_tile(
+        float (&s)[NS], bool masked, int k0, int S, int causal, int t,
+        int row0, int row1, float scale_log2, float& m0, float& m1,
+        float& a0, float& a1, float& rs0, float& rs1) {
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+        if (masked) {
+            const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            const int qp = (i & 2) ? row1 : row0;
+            if (kp >= S || (causal && kp > qp)) s[i] = NEG;
+        }
+        if (i & 2) mx1 = fmaxf(mx1, s[i]);
+        else mx0 = fmaxf(mx0, s[i]);
+    }
+    // a row's keys lie in the 4 lanes of one quad
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    a0 = ex2((m0 - mn0) * scale_log2);
+    a1 = ex2((m1 - mn1) * scale_log2);
+    m0 = mn0;
+    m1 = mn1;
+    const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+    rs0 = 0.0f;
+    rs1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+        const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+        s[i] = p;
+        if (i & 2) rs1 += p;
+        else rs0 += p;
+    }
+}
+
+// Once P V of the earlier tiles has landed: their rescale, l (this lane's
+// share; the quad sums last), and P rounded to bf16 as the A fragments of
+// the next P V, pairwise from the score accumulator.
+template <int NS>
+__device__ __forceinline__ void rescale_pack(
+        float (&acc)[64], const float (&s)[NS], uint32_t (&pa)[NS / 8][4],
+        float a0, float a1, float rs0, float rs1, float& l0, float& l1) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int kk = 0; kk < NS / 8; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
 }
 
@@ -858,186 +922,10 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
             }
     };
 
-    auto consume = [&]() {
-        const int wg = tid >> 7;
-        if (wg >= n_wg) return;                       // rows all past S
-        const int warp = (tid >> 5) & 3, lane = tid & 31;
-        const int g = lane >> 2, t = lane & 3;        // fragment row / col pair
-        const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
-        // its tiles: up to the diagonal one, where it is masked
-        const int n = causal ? (min(q0 + 64 * wg + 64, S) - 1) / D128_BK + 1
-                             : n_k_all;
-        const uint32_t sQ = base + wg * D128_QTILE;
-        // ping-pong: named barrier 3 + w lets warpgroup w issue its next
-        // products, the other arrives at it once it has issued its own;
-        // warpgroup 0 goes first, and warpgroup 1 skips its last arrival,
-        // which nobody would wait for
-        const bool pingpong = D128_PINGPONG && n_wg == 2;
-        const uint32_t my_turn = 3 + wg, their_turn = 4 - wg;
-        if (pingpong && wg == 1) named_arrive(3, 256);
-
-        // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1);
-        // s the same over keys
-        float acc[64], s[D128_NS];
-        uint32_t pa[D128_BK / 16][4];
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-        float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
-        float a0, a1, rs0, rs1;
-
-        // mask the diagonal / ragged tile j, online softmax (m in score
-        // units, p = 2^(s * scale_log2 - m * scale_log2)): p into s, the
-        // rescale of the earlier tiles into a0 / a1, this lane's row sums
-        // into rs0 / rs1
-        auto softmax = [&](int j) {
-            const int k0 = j * D128_BK;
-            const bool masked = (causal && j == n - 1) || k0 + D128_BK > S;
-            float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-            for (int i = 0; i < D128_NS; ++i) {
-                if (masked) {
-                    const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-                    const int qp = (i & 2) ? row1 : row0;
-                    if (kp >= S || (causal && kp > qp)) s[i] = NEG;
-                }
-                if (i & 2) mx1 = fmaxf(mx1, s[i]);
-                else mx0 = fmaxf(mx0, s[i]);
-            }
-            // a row's keys lie in the 4 lanes of one quad
-            mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 1));
-            mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 2));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 1));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 2));
-            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-            a0 = ex2((m0 - mn0) * scale_log2);
-            a1 = ex2((m1 - mn1) * scale_log2);
-            m0 = mn0;
-            m1 = mn1;
-            const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
-            rs0 = 0.0f;
-            rs1 = 0.0f;
-#pragma unroll
-            for (int i = 0; i < D128_NS; ++i) {
-                const float p = ex2(fmaf(s[i], scale_log2,
-                                         (i & 2) ? off1 : off0));
-                s[i] = p;
-                if (i & 2) rs1 += p;
-                else rs0 += p;
-            }
-        };
-        // the rescale once P V of the earlier tiles has landed, and P
-        // rounded to bf16 as the A fragments of the next P V, pairwise from
-        // the score accumulator
-        auto rescale_and_pack = [&]() {
-#pragma unroll
-            for (int i = 0; i < 64; ++i) acc[i] *= (i & 2) ? a1 : a0;
-            l0 = l0 * a0 + rs0;       // this lane's share; the quad sums last
-            l1 = l1 * a1 + rs1;
-#pragma unroll
-            for (int kk = 0; kk < D128_BK / 16; ++kk) {
-                pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-                pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-                pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-                pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-            }
-        };
-
-        mbar_wait(barQ, 0);
-        mbar_wait(barQ + 8, 0);
-        if (pingpong) named_sync(my_turn, 256);
-        fence_regs(s);
-        wgmma_fence();
-        qk128(s, sQ, sKV);
-        wgmma_commit();
-        if (pingpong) named_arrive(their_turn, 256);
-        wgmma_wait_all();
-        fence_regs(s);
-        softmax(0);
-        rescale_and_pack();
-
-        // tile j: Q K^T of tile j + 1 and P V of tile j issued together;
-        // the softmax of j + 1 runs once the first is done, under the second
-        for (int j = 0; j < n; ++j) {
-            const int st = j % D128_STAGES;
-            const bool more = j + 1 < n;
-            const uint32_t sV = sKV + (2 * st + 1) * D128_KVTILE;
-            if (more) {
-                const int nst = (j + 1) % D128_STAGES;
-                mbar_wait(barQ + 8 * (1 + nst), ((j + 1) / D128_STAGES) & 1);
-            }
-            if (pingpong) named_sync(my_turn, 256);
-            fence_regs(s);
-            fence_regs(acc);
-            fence_regs(pa);
-            wgmma_fence();
-            if (more) {
-                qk128(s, sQ, sKV + 2 * ((j + 1) % D128_STAGES) * D128_KVTILE);
-                wgmma_commit();
-            }
-#pragma unroll
-            for (int kk = 0; kk < D128_BK / 16; ++kk)   // keys 16 kk ..
-                wgmma_rs_n128(acc, pa[kk],
-                              make_desc(sV + kk * 16 * D128_ROW_B,
-                                        D128_KBOX, 1024, 1));
-            wgmma_commit();
-            if (pingpong && (more || wg == 0)) named_arrive(their_turn, 256);
-            if (more) {
-                if constexpr (D128_OVERLAP) wgmma_wait_1();
-                else wgmma_wait_all();
-                fence_regs(s);
-                softmax(j + 1);
-            }
-            wgmma_wait_all();
-            fence_regs(acc);
-            fence_regs(pa);
-            if (lane == 0) mbar_arrive(barQ + 8 * (1 + D128_STAGES + st));
-            if (!D128_PRODUCER && tid == 0 && j + D128_STAGES < n_k) {
-                mbar_wait(barQ + 8 * (1 + D128_STAGES + st),
-                          (j / D128_STAGES) & 1);
-                load_kv(j + D128_STAGES);
-            }
-            if (more) rescale_and_pack();
-        }
-
-        l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
-        l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
-        l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
-        l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
-        const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-
-        // epilogue: O into this warpgroup's Q tile (its last reader, Q K^T,
-        // is done) in the layout TMA loads write — a row's 16-byte pieces
-        // permuted by the 128-byte swizzle, piece ^= row % 8, in each box —
-        // then two TMA stores, which drop the rows past S
-        named_sync(1 + wg, 128);
-        uint8_t* gQ = gbase + (sQ - base);
-        const int r0 = 16 * warp + g, r1 = r0 + 8;
-#pragma unroll
-        for (int c = 0; c < 16; ++c) {
-            uint8_t* box = gQ + (c >> 3) * D128_BOX_B + 4 * t;
-            *reinterpret_cast<__nv_bfloat162*>(
-                box + r0 * 128 + (((c & 7) ^ (r0 & 7)) << 4)) =
-                __floats2bfloat162_rn(acc[4 * c] / den0,
-                                      acc[4 * c + 1] / den0);
-            *reinterpret_cast<__nv_bfloat162*>(
-                box + r1 * 128 + (((c & 7) ^ (r1 & 7)) << 4)) =
-                __floats2bfloat162_rn(acc[4 * c + 2] / den1,
-                                      acc[4 * c + 3] / den1);
-        }
-        fence_proxy_async();
-        named_sync(1 + wg, 128);
-        if ((tid & 127) == 0) {
-            tma_store(&map_o, sQ, 0, h, q0 + 64 * wg, b);
-            tma_store(&map_o, sQ + D128_BOX_B, 64, h, q0 + 64 * wg, b);
-            tma_store_drain();
-        }
-    };
-
-    // one if / else, never rejoined, so that ptxas holds each side to its
-    // own register count
+    // the producer warpgroup: one thread keeps the ring full; the registers
+    // the warpgroup gives up go to the consumers, and it never rejoins them
     if constexpr (D128_PRODUCER) {
         if (tid >= 128 * D128_WG) {
-            // the producer warpgroup: one thread keeps the ring full
             setmaxnreg_dec<D128_PRODUCER_REGS>();
             if (tid == 128 * D128_WG) {
                 load_q();
@@ -1049,16 +937,138 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
                     load_kv(j);
                 }
             }
-        } else {
-            setmaxnreg_inc<D128_CONSUMER_REGS>();
-            consume();
+            return;
         }
-    } else {
-        if (tid == 0) {
-            load_q();
-            for (int j = 0; j < n_k && j < D128_STAGES; ++j) load_kv(j);
+        setmaxnreg_inc<D128_CONSUMER_REGS>();
+    } else if (tid == 0) {
+        load_q();
+        for (int j = 0; j < n_k && j < D128_STAGES; ++j) load_kv(j);
+    }
+
+    const int wg = tid >> 7;
+    if (wg >= n_wg) return;                           // rows all past S
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;            // fragment row / col pair
+    const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+    // its tiles: up to the diagonal one, where it is masked
+    const int n = causal ? (min(q0 + 64 * wg + 64, S) - 1) / D128_BK + 1
+                         : n_k_all;
+    const uint32_t sQ = base + wg * D128_QTILE;
+    // ping-pong: named barrier 3 + w lets warpgroup w issue its next
+    // products, the other arrives at it once it has issued its own;
+    // warpgroup 0 goes first, and warpgroup 1 skips its last arrival, which
+    // nobody would wait for
+    const bool pingpong = D128_PINGPONG && n_wg == 2;
+    const uint32_t my_turn = 3 + wg, their_turn = 4 - wg;
+    if (pingpong && wg == 1) named_arrive(3, 256);
+
+    // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1); s the
+    // same over keys
+    float acc[64], s[D128_NS];
+    uint32_t pa[D128_BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+    float a0, a1, rs0, rs1;
+
+    mbar_wait(barQ, 0);
+    mbar_wait(barQ + 8, 0);
+    if (pingpong) named_sync(my_turn, 256);
+    wgmma_fence();
+    qk128<D128_BK>(s, sQ, sKV);
+    wgmma_commit();
+    if (pingpong) named_arrive(their_turn, 256);
+    wgmma_wait_all();
+    fence_regs(s);
+    softmax_tile(s, (causal && n == 1) || D128_BK > S, 0, S, causal, t,
+                 row0, row1, scale_log2, m0, m1, a0, a1, rs0, rs1);
+    rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
+
+    // tile j < n - 1: Q K^T of tile j + 1 and P V of tile j issued
+    // together; the softmax of j + 1 runs once the first is done, under the
+    // second.  Every product is issued outside any branch (ptxas serialises
+    // wgmma that a branch holds): the last tile's P V is peeled off.
+    auto release = [&](int j) {
+        const int st = j % D128_STAGES;
+        if (lane == 0) mbar_arrive(barQ + 8 * (1 + D128_STAGES + st));
+        if (!D128_PRODUCER && tid == 0 && j + D128_STAGES < n_k) {
+            mbar_wait(barQ + 8 * (1 + D128_STAGES + st),
+                      (j / D128_STAGES) & 1);
+            load_kv(j + D128_STAGES);
         }
-        consume();
+    };
+    auto pv = [&](int j) {
+        const uint32_t sV = sKV + (2 * (j % D128_STAGES) + 1) * D128_KVTILE;
+#pragma unroll
+        for (int kk = 0; kk < D128_BK / 16; ++kk)       // keys 16 kk ..
+            wgmma_rs_n128(acc, pa[kk], make_desc(sV + kk * 16 * D128_ROW_B,
+                                                 D128_KBOX, 1024, 1));
+        wgmma_commit();
+    };
+    for (int j = 0; j + 1 < n; ++j) {
+        const int nst = (j + 1) % D128_STAGES;
+        mbar_wait(barQ + 8 * (1 + nst), ((j + 1) / D128_STAGES) & 1);
+        if (pingpong) named_sync(my_turn, 256);
+        fence_regs(acc);
+        fence_regs(pa);
+        wgmma_fence();
+        qk128<D128_BK>(s, sQ, sKV + 2 * nst * D128_KVTILE);
+        wgmma_commit();
+        pv(j);
+        if (pingpong) named_arrive(their_turn, 256);
+        if constexpr (D128_OVERLAP) wgmma_wait_1();
+        else wgmma_wait_all();
+        fence_regs(s);
+        const int k0 = (j + 1) * D128_BK;
+        softmax_tile(s, (causal && j + 2 == n) || k0 + D128_BK > S, k0, S,
+                     causal, t, row0, row1, scale_log2, m0, m1, a0, a1, rs0,
+                     rs1);
+        wgmma_wait_all();
+        fence_regs(acc);
+        fence_regs(pa);
+        release(j);
+        rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
+    }
+    if (pingpong) named_sync(my_turn, 256);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+    pv(n - 1);
+    if (pingpong && wg == 0) named_arrive(their_turn, 256);
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(n - 1);
+
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+
+    // epilogue: O into this warpgroup's Q tile (its last reader, Q K^T, is
+    // done) in the layout TMA loads write — a row's 16-byte pieces permuted
+    // by the 128-byte swizzle, piece ^= row % 8, in each box — then two TMA
+    // stores, which drop the rows past S
+    named_sync(1 + wg, 128);
+    uint8_t* gQ = gbase + (sQ - base);
+    const int r0 = 16 * warp + g, r1 = r0 + 8;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        uint8_t* box = gQ + (c >> 3) * D128_BOX_B + 4 * t;
+        *reinterpret_cast<__nv_bfloat162*>(
+            box + r0 * 128 + (((c & 7) ^ (r0 & 7)) << 4)) =
+            __floats2bfloat162_rn(acc[4 * c] / den0, acc[4 * c + 1] / den0);
+        *reinterpret_cast<__nv_bfloat162*>(
+            box + r1 * 128 + (((c & 7) ^ (r1 & 7)) << 4)) =
+            __floats2bfloat162_rn(acc[4 * c + 2] / den1,
+                                  acc[4 * c + 3] / den1);
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if ((tid & 127) == 0) {
+        tma_store(&map_o, sQ, 0, h, q0 + 64 * wg, b);
+        tma_store(&map_o, sQ + D128_BOX_B, 64, h, q0 + 64 * wg, b);
+        tma_store_drain();
     }
 }
 

@@ -33,7 +33,6 @@ import argparse
 import ctypes
 import json
 import math
-import os
 import pathlib
 import re
 import subprocess
@@ -106,9 +105,12 @@ def build(plans: dict, parent) -> dict:
 
 def ptxas(log: str) -> dict:
     """flash_tc128_kernel's (or, in the parent, flash_tc_kernel<128>'s)
-    registers and spills, and every ptxas warning."""
+    registers, stack frame and spills, every ptxas warning, and its notes
+    on performance (a wgmma pipeline it had to serialise)."""
     rec, fn = {"warnings": [l.strip() for l in log.splitlines()
-                            if "warning" in l.lower()]}, None
+                            if "warning" in l.lower()],
+               "notes": [l.strip() for l in log.splitlines()
+                         if "Performance" in l or "C75" in l]}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -120,6 +122,9 @@ def ptxas(log: str) -> dict:
             if m:
                 rec.update(spill_stores=int(m.group(1)),
                            spill_loads=int(m.group(2)))
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                rec["stack_frame"] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 rec["registers"] = int(m.group(1))
