@@ -26,7 +26,8 @@
 // [B, S, heads, D], so rows past S within one batch row read as zeros) into
 // a two-stage K/V ring whose mbarriers the block waits on; tile j+1 is in
 // flight while tile j is multiplied.  The TMA swizzle (32, 64 or 128 B: one
-// row of D <= 64) is the one the wgmma descriptors name.  Only the diagonal tile (and the ragged last one) is masked
+// row of D <= 64) is the one the wgmma descriptors name.  Only the diagonal
+// tile (and the ragged last one) is masked
 // element-wise; log2(e) is folded into the scale, so each score costs one
 // FFMA and one EX2; m, l and acc are f32 registers; P is rounded to bf16
 // before P V, the rounding of the reference's own oracle
@@ -66,15 +67,21 @@
 // bfloat16 at D = 128 (llava's 32 heads over 8 KV heads, 576 patches + 512
 // tokens), flash_tc128_kernel: at (4, 1088, 32, 8, 128) the work is 89 MB
 // and 38.8 GFLOP causal, bound by operations (39.3 us at 989 TFLOP/s, 26.6
-// us by bytes): what a launch pays for is the time the tensor cores stand
-// idle.  So the d = 80 design at 128 columns (a row is two 64-column boxes
-// at the 128-byte swizzle; 128 q rows a block in two consumer warpgroups
-// sharing each K / V tile through full / empty mbarriers; the output by TMA
-// store), and then what one block an SM can afford:
-//   * a producer warpgroup whose one thread keeps a two-stage ring of
-//     128-key tiles full; it gives its registers up (setmaxnreg to 40) and
-//     the two consumer warpgroups take them (232), for the 64 score, 64
-//     output and 32 P registers a thread of an m64n128 product needs;
+// us by bytes), in 1152 items of (head, 128 q rows) averaging 4.5 key
+// tiles: what a launch pays for is the time the tensor cores stand idle,
+// in the softmax and at each item's start and end.  So the d = 80 design at
+// 128 columns (a row is two 64-column boxes at the 128-byte swizzle; 128 q
+// rows in two consumer warpgroups sharing each K / V tile through full /
+// empty mbarriers; the output by TMA store), and then what one block an SM
+// can afford:
+//   * persistent blocks, one an SM, each walking items longest first; a
+//     producer warpgroup whose one thread loads the next item's Q as soon
+//     as the last Q K^T of the current one is done and keeps a two-stage
+//     ring of 128-key tiles full across items; the output leaves through
+//     O tiles of its own, so an item's stores overlap the next one's work;
+//   * the producer gives its registers up (setmaxnreg to 40) and the two
+//     consumer warpgroups take them (232), for the 64 score, 64 output and
+//     32 P registers a thread of an m64n128 product needs;
 //   * Q K^T as m64n128 (eight k16 steps) and P V as eight m64n128 steps
 //     with P from registers; a warpgroup issues Q K^T of tile j + 1 before
 //     P V of tile j and runs the softmax of j + 1 as soon as the first is
@@ -82,9 +89,9 @@
 //   * ping-pong: two named barriers let the warpgroups issue their products
 //     in turn, so one's softmax runs under the other's products;
 //   * both warpgroups walk the same tiles (the diagonal 128-key tile is the
-//     last of each), skip all tiles above it, and a block whose second
-//     warpgroup holds no row (S = 1088 ends half way into a block) runs the
-//     first alone, without ping-pong.
+//     last of each) and skip all tiles above it; in an item whose second
+//     warpgroup holds no row (S = 1088 ends half way into one) the first
+//     runs alone, without ping-pong, and the second only releases tiles.
 // Its arithmetic is the other head dims'.
 //
 // float32: the products stay f32 FMAs on the CUDA cores (inputs staged in
@@ -725,8 +732,8 @@ cudaError_t launch_tc80(const void* q, const void* k, const void* v, void* o,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16 at head dim 128: 128 q rows a block in two consumer warpgroups
-// that share each K / V tile, fed by a producer warpgroup
+// bfloat16 at head dim 128: persistent blocks, each walking (head, q tile)
+// items with a producer warpgroup and two consumer warpgroups
 // --------------------------------------------------------------------------
 // The D = 128 tile plan: the TMA boxes of one row of 128 columns, each
 // {columns, swizzle row bytes} — two 64-column boxes at the 128-byte
@@ -739,49 +746,62 @@ static_assert(D128_BOX_COLS[0] + D128_BOX_COLS[1] == 128
               "the D = 128 boxes cover 128 columns, each one swizzle row");
 // The plan's measured alternatives stay build-time switches, so that
 // tools/flash128_variants.py can build each one beside the kept plan:
-// keys a tile (64: Q K^T as m64n64, 128: as m64n128), ring stages, a
-// producer warpgroup (else thread 0 refills the ring between its own
-// products), ping-pong of the two consumer warpgroups' products, and the
-// softmax of tile j + 1 run while P V of tile j is in flight.
+// persistent blocks (else one block an item), ping-pong of the two
+// consumer warpgroups' products, and the softmax of tile j + 1 run while
+// P V of tile j is in flight.
+#ifndef REPRO_FLASH128_PERSISTENT
+#define REPRO_FLASH128_PERSISTENT 1
+#endif
+#ifndef REPRO_FLASH128_PINGPONG
+#define REPRO_FLASH128_PINGPONG 0
+#endif
+#ifndef REPRO_FLASH128_OVERLAP
+#define REPRO_FLASH128_OVERLAP 0
+#endif
+#ifndef REPRO_FLASH128_PRODUCER_WG
+#define REPRO_FLASH128_PRODUCER_WG 0
+#endif
 #ifndef REPRO_FLASH128_KEYS
 #define REPRO_FLASH128_KEYS 128
 #endif
-#ifndef REPRO_FLASH128_STAGES
-#define REPRO_FLASH128_STAGES 2
+// attribution only (wrong results): no K / V tile reloaded once the ring
+// is full; no exponentials in the softmax
+#ifndef REPRO_FLASH128_DIAG_NO_RELOAD
+#define REPRO_FLASH128_DIAG_NO_RELOAD 0
 #endif
-#ifndef REPRO_FLASH128_PRODUCER
-#define REPRO_FLASH128_PRODUCER 1
+#ifndef REPRO_FLASH128_DIAG_NO_EXP
+#define REPRO_FLASH128_DIAG_NO_EXP 0
 #endif
-#ifndef REPRO_FLASH128_PINGPONG
-#define REPRO_FLASH128_PINGPONG 1
-#endif
-#ifndef REPRO_FLASH128_OVERLAP
-#define REPRO_FLASH128_OVERLAP 1
-#endif
-constexpr int D128_BK = REPRO_FLASH128_KEYS;       // keys a k tile
-constexpr int D128_STAGES = REPRO_FLASH128_STAGES; // K/V ring depth
-constexpr bool D128_PRODUCER = REPRO_FLASH128_PRODUCER;
+constexpr bool D128_PRODUCER_WG = REPRO_FLASH128_PRODUCER_WG;
+constexpr bool D128_PERSISTENT = REPRO_FLASH128_PERSISTENT;
 constexpr bool D128_PINGPONG = REPRO_FLASH128_PINGPONG;
 constexpr bool D128_OVERLAP = REPRO_FLASH128_OVERLAP;
+constexpr int D128_BK = REPRO_FLASH128_KEYS;       // keys a k tile
 static_assert(D128_BK == 64 || D128_BK == 128, "Q K^T is m64n64 or m64n128");
-static_assert(!D128_PINGPONG || D128_BK == 128,
-              "ping-pong needs both warpgroups to walk the same tiles");
+constexpr int D128_STAGES = 256 / D128_BK;         // K/V ring: 128 KB
 constexpr int D128_WG = 2;                         // consumer warpgroups
-constexpr int D128_BQ = 64 * D128_WG;              // q rows a block
-constexpr int D128_THREADS = 128 * (D128_WG + D128_PRODUCER);
-// registers a thread once the producer warpgroup has given its up:
+constexpr int D128_BQ = 64 * D128_WG;              // q rows an item
+// + the producer: one warp (every thread then has 224 registers), or a
+// warpgroup that gives its registers up to the consumers by setmaxnreg:
 // 128 x 40 + 256 x 232 = 64 512 of the SM's 65 536
-constexpr int D128_PRODUCER_REGS = 40, D128_CONSUMER_REGS = 232;
+constexpr int D128_THREADS = 128 * D128_WG + (D128_PRODUCER_WG ? 128 : 32);
+#ifndef REPRO_FLASH128_PRODUCER_REGS
+#define REPRO_FLASH128_PRODUCER_REGS 40
+#endif
+constexpr int D128_PRODUCER_REGS = REPRO_FLASH128_PRODUCER_REGS;
+constexpr int D128_CONSUMER_REGS =
+    (65536 / 128 - D128_PRODUCER_REGS) / D128_WG / 8 * 8;
 constexpr int D128_ROW_B = D128_BOX_ROW_B[0];      // a box's row: 128 B
 constexpr int D128_BOX_B = 64 * D128_ROW_B;         // 64 rows of a box: 8 KB
 constexpr int D128_QTILE = 2 * D128_BOX_B;          // 64 q rows: 16 KB
 constexpr int D128_KBOX = D128_BK * D128_ROW_B;     // BK rows of a box
 constexpr int D128_KVTILE = 2 * D128_KBOX;          // BK keys of K (or V)
 constexpr int D128_NS = D128_BK / 2;                // score registers
-// Q (one tile a warpgroup, reused for the output), the K/V ring, then
-// 1 + 2 STAGES mbarriers, and alignment: 160 KB, one block an SM
-constexpr int D128_SMEM = D128_WG * D128_QTILE
-    + 2 * D128_STAGES * D128_KVTILE + 1024 + 8 * (1 + 2 * D128_STAGES);
+// Q and O (a tile of each a warpgroup), the K/V ring, then the mbarriers
+// (Q full, Q empty, STAGES full, STAGES empty), and alignment: 193 KB, one
+// block an SM
+constexpr int D128_SMEM = 2 * D128_WG * D128_QTILE
+    + 2 * D128_STAGES * D128_KVTILE + 1024 + 8 * (2 + 2 * D128_STAGES);
 static_assert(D128_SMEM <= 232448, "one block's shared memory");
 
 // S = Q K^T over the 128 columns: eight k16 steps, four in each box (Q's
@@ -801,19 +821,29 @@ __device__ __forceinline__ void qk128(float (&s)[NK / 2], uint32_t sQ,
     }
 }
 
+// O += P V over the keys of one tile: BK / 16 m64n128k16 steps, P from
+// registers, V MN-major (its two column boxes D128_KBOX apart)
+__device__ __forceinline__ void pv128(float (&acc)[64],
+                                      const uint32_t (&pa)[D128_BK / 16][4],
+                                      uint32_t sV) {
+#pragma unroll
+    for (int kk = 0; kk < D128_BK / 16; ++kk)       // keys 16 kk ..
+        wgmma_rs_n128(acc, pa[kk], make_desc(sV + kk * 16 * D128_ROW_B,
+                                             D128_KBOX, 1024, 1));
+}
+
 // Mask the diagonal / ragged tile whose first key is k0 (where `masked`),
 // then the online softmax over it (m in score units, p = 2^(s * scale_log2
 // - m * scale_log2)): p into s, the rescale of the earlier tiles into a0 /
 // a1, this lane's row sums into rs0 / rs1.  s[4c + e] is row (e < 2 ? row0
 // : row1), key k0 + 8c + 2t + (e & 1).
-template <int NS>
 __device__ __forceinline__ void softmax_tile(
-        float (&s)[NS], bool masked, int k0, int S, int causal, int t,
+        float (&s)[D128_NS], bool masked, int k0, int S, int causal, int t,
         int row0, int row1, float scale_log2, float& m0, float& m1,
         float& a0, float& a1, float& rs0, float& rs1) {
     float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
+    for (int i = 0; i < D128_NS; ++i) {
         if (masked) {
             const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
             const int qp = (i & 2) ? row1 : row0;
@@ -836,8 +866,10 @@ __device__ __forceinline__ void softmax_tile(
     rs0 = 0.0f;
     rs1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-        const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+    for (int i = 0; i < D128_NS; ++i) {
+        const float p = REPRO_FLASH128_DIAG_NO_EXP
+            ? fmaf(s[i], scale_log2, (i & 2) ? off1 : off0)
+            : ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
         s[i] = p;
         if (i & 2) rs1 += p;
         else rs0 += p;
@@ -847,16 +879,16 @@ __device__ __forceinline__ void softmax_tile(
 // Once P V of the earlier tiles has landed: their rescale, l (this lane's
 // share; the quad sums last), and P rounded to bf16 as the A fragments of
 // the next P V, pairwise from the score accumulator.
-template <int NS>
 __device__ __forceinline__ void rescale_pack(
-        float (&acc)[64], const float (&s)[NS], uint32_t (&pa)[NS / 8][4],
-        float a0, float a1, float rs0, float rs1, float& l0, float& l1) {
+        float (&acc)[64], const float (&s)[D128_NS],
+        uint32_t (&pa)[D128_BK / 16][4], float a0, float a1, float rs0,
+        float rs1, float& l0, float& l1) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] *= (i & 2) ? a1 : a0;
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
-    for (int kk = 0; kk < NS / 8; ++kk) {
+    for (int kk = 0; kk < D128_BK / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -864,211 +896,274 @@ __device__ __forceinline__ void rescale_pack(
     }
 }
 
+// One item: head bh of batch row bh / H, q rows [q0, q0 + 128), its causal
+// key tiles; items run longest first (the q tile axis reversed)
+struct Item128 {
+    int b, h, q0, n, n_wg;
+    __device__ __forceinline__ Item128(int item, int BH, int H, int n_qt,
+                                       int S, int causal) {
+        const int bh = item % BH;
+        b = bh / H;
+        h = bh % H;
+        q0 = (n_qt - 1 - item / BH) * D128_BQ;
+        // its tiles, the same for both warpgroups: up to the diagonal one
+        n = causal ? (min(q0 + D128_BQ, S) - 1) / D128_BK + 1
+                   : (S + D128_BK - 1) / D128_BK;
+        n_wg = q0 + 64 < S ? 2 : 1;                // warpgroups with rows
+    }
+};
+
 __global__ void __launch_bounds__(D128_THREADS, 1)
 flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_o, int S, int H,
-                   int KV, float scale_log2, int causal) {
+                   int KV, int BH, int n_qt, float scale_log2, int causal) {
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
-    const uint32_t sKV = base + D128_WG * D128_QTILE;  // stage st: K, then V
+    // Q tiles, O tiles, then stage st's K and V
+    const uint32_t sO = base + D128_WG * D128_QTILE;
+    const uint32_t sKV = sO + D128_WG * D128_QTILE;
     const uint32_t barQ = sKV + 2 * D128_STAGES * D128_KVTILE;
-    // full[st] at barQ + 8 (1 + st), empty[st] at barQ + 8 (1 + STAGES + st)
+    const uint32_t barQfree = barQ + 8;
+    // full[st] at barQ + 8 (2 + st), empty[st] at barQ + 8 (2 + STAGES + st)
+    auto full = [&](int st) { return barQ + 8 * (2 + st); };
+    auto empty = [&](int st) { return barQ + 8 * (2 + D128_STAGES + st); };
 
     const int tid = threadIdx.x;
-    const int bh = blockIdx.x;
-    const int b = bh / H, h = bh % H;
-    const int kvh = h / (H / KV);
-    const int qt = gridDim.y - 1 - blockIdx.y;      // longest tiles first
-    const int q0 = qt * D128_BQ;
-    const int n_k_all = (S + D128_BK - 1) / D128_BK;
-    const int n_k = causal ? (min(q0 + D128_BQ, S) - 1) / D128_BK + 1
-                           : n_k_all;
-    const int n_wg = q0 + 64 < S ? 2 : 1;            // warpgroups with rows
-
+    const int n_items = BH * n_qt;
     if (tid == 0) {
         mbar_init(barQ, 1);
+        mbar_init(barQfree, 4 * D128_WG);            // one arrival a warp
         for (int st = 0; st < D128_STAGES; ++st) {
-            mbar_init(barQ + 8 * (1 + st), 1);
-            mbar_init(barQ + 8 * (1 + D128_STAGES + st), 4 * n_wg);
+            mbar_init(full(st), 1);
+            mbar_init(empty(st), 4 * D128_WG);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
 
-    // both Q tiles (rows past S arrive as zeros), and K / V tile j into
-    // stage j % STAGES: BK / 64 row boxes in each of the two column boxes
-    auto load_q = [&]() {
-        mbar_expect_tx(barQ, D128_WG * D128_QTILE);
-        for (int w = 0; w < D128_WG; ++w)
-            for (int c = 0; c < 2; ++c)
-                tma_load(&map_q, base + w * D128_QTILE + c * D128_BOX_B, barQ,
-                         64 * c, h, q0 + 64 * w, b);
-    };
-    auto load_kv = [&](int j) {
-        const int st = j % D128_STAGES;
-        const uint32_t full = barQ + 8 * (1 + st);
-        const uint32_t sK = sKV + 2 * st * D128_KVTILE;
-        mbar_expect_tx(full, 2 * D128_KVTILE);
-        for (int c = 0; c < 2; ++c)
-            for (int r = 0; r < D128_BK / 64; ++r) {
-                const uint32_t off = c * D128_KBOX + r * D128_BOX_B;
-                const int s0 = j * D128_BK + 64 * r;
-                tma_load(&map_k, sK + off, full, 64 * c, kvh, s0, b);
-                tma_load(&map_v, sK + D128_KVTILE + off, full, 64 * c, kvh,
-                         s0, b);
-            }
-    };
+    // the warpgroup, as a value the compiler knows is the same across a warp
+    // (ptxas places setmaxnreg only on such branches)
+    const int wg = __shfl_sync(FULL_WARP, tid >> 7, 0);
 
-    // the producer warpgroup: one thread keeps the ring full; the registers
-    // the warpgroup gives up go to the consumers, and it never rejoins them
-    if constexpr (D128_PRODUCER) {
-        if (tid >= 128 * D128_WG) {
-            setmaxnreg_dec<D128_PRODUCER_REGS>();
-            if (tid == 128 * D128_WG) {
-                load_q();
-                for (int j = 0; j < n_k; ++j) {
-                    if (j >= D128_STAGES)
-                        mbar_wait(barQ + 8 * (1 + D128_STAGES
-                                              + j % D128_STAGES),
-                                  (j / D128_STAGES - 1) & 1);
-                    load_kv(j);
+    // The producer warpgroup: one thread loads each item's two Q tiles once
+    // the consumers are done with the last ones (rows past S arrive as
+    // zeros), and keeps the ring of K / V tiles full across items; the
+    // registers the warpgroup gives up go to the consumers, and it never
+    // rejoins them.
+    if (wg >= D128_WG) {
+        if constexpr (D128_PRODUCER_WG) setmaxnreg_dec<D128_PRODUCER_REGS>();
+        if (tid == 128 * D128_WG) {
+            int it = 0;                              // ring tiles so far
+            int local = 0;                               // this block's items
+            for (int item = blockIdx.x; item < n_items;
+                 item += gridDim.x, ++local) {
+                const Item128 w(item, BH, H, n_qt, S, causal);
+                const int kvh = w.h / (H / KV);
+                if (local > 0) mbar_wait(barQfree, (local - 1) & 1);
+                mbar_expect_tx(barQ, D128_WG * D128_QTILE);
+                for (int g = 0; g < D128_WG; ++g)
+                    for (int c = 0; c < 2; ++c)
+                        tma_load(&map_q, base + g * D128_QTILE + c * D128_BOX_B,
+                                 barQ, 64 * c, w.h, w.q0 + 64 * g, w.b);
+                for (int j = 0; j < w.n; ++j, ++it) {
+                    const int st = it % D128_STAGES;
+                    if (it >= D128_STAGES)
+                        mbar_wait(empty(st), (it / D128_STAGES - 1) & 1);
+                    const uint32_t sK = sKV + 2 * st * D128_KVTILE;
+                    if (REPRO_FLASH128_DIAG_NO_RELOAD && it >= D128_STAGES) {
+                        mbar_arrive(full(st));
+                        continue;
+                    }
+                    mbar_expect_tx(full(st), 2 * D128_KVTILE);
+                    for (int c = 0; c < 2; ++c)
+                        for (int r = 0; r < D128_BK / 64; ++r) {
+                            const uint32_t off = c * D128_KBOX + r * D128_BOX_B;
+                            const int s0 = j * D128_BK + 64 * r;
+                            tma_load(&map_k, sK + off, full(st), 64 * c, kvh, s0,
+                                     w.b);
+                            tma_load(&map_v, sK + D128_KVTILE + off,
+                                     full(st), 64 * c, kvh, s0, w.b);
+                        }
                 }
             }
-            return;
         }
-        setmaxnreg_inc<D128_CONSUMER_REGS>();
-    } else if (tid == 0) {
-        load_q();
-        for (int j = 0; j < n_k && j < D128_STAGES; ++j) load_kv(j);
-    }
+    } else {
+        if constexpr (D128_PRODUCER_WG) setmaxnreg_inc<D128_CONSUMER_REGS>();
+        const int warp = (tid >> 5) & 3, lane = tid & 31;
+        const int g = lane >> 2, t = lane & 3;            // fragment row / col pair
+        const uint32_t sQ = base + wg * D128_QTILE;
+        uint8_t* gO = gbase + (sO - base) + wg * D128_QTILE;
+        // ping-pong: named barrier 3 + w lets warpgroup w issue its next
+        // products, the other arrives at it once it has issued its own;
+        // warpgroup 0 goes first, and warpgroup 1 skips its last arrival of an
+        // item, which nobody would wait for
+        const uint32_t my_turn = 3 + wg, their_turn = 4 - wg;
+        // the rescale and row sums of the tile last through the softmax
+        float a0, a1, rs0, rs1;
+        int it = 0, local = 0;
+        for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++local) {
+            const Item128 w(item, BH, H, n_qt, S, causal);
+            const int n = w.n;
+            mbar_wait(barQ, local & 1);
+            if (wg >= w.n_wg) {
+                // rows all past S: release Q and every tile as the other reads
+                if (lane == 0) mbar_arrive(barQfree);
+                for (int j = 0; j < n; ++j, ++it) {
+                    const int st = it % D128_STAGES;
+                    mbar_wait(full(st), (it / D128_STAGES) & 1);
+                    if (lane == 0) mbar_arrive(empty(st));
+                }
+                continue;
+            }
+            const bool pingpong = D128_PINGPONG && w.n_wg == 2;
+            if (pingpong && wg == 1) named_arrive(3, 256);
+            const int row0 = w.q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
 
-    const int wg = tid >> 7;
-    if (wg >= n_wg) return;                           // rows all past S
-    const int warp = (tid >> 5) & 3, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;            // fragment row / col pair
-    const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
-    // its tiles: up to the diagonal one, where it is masked
-    const int n = causal ? (min(q0 + 64 * wg + 64, S) - 1) / D128_BK + 1
-                         : n_k_all;
-    const uint32_t sQ = base + wg * D128_QTILE;
-    // ping-pong: named barrier 3 + w lets warpgroup w issue its next
-    // products, the other arrives at it once it has issued its own;
-    // warpgroup 0 goes first, and warpgroup 1 skips its last arrival, which
-    // nobody would wait for
-    const bool pingpong = D128_PINGPONG && n_wg == 2;
-    const uint32_t my_turn = 3 + wg, their_turn = 4 - wg;
-    if (pingpong && wg == 1) named_arrive(3, 256);
+            // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1);
+            // s the same over keys
+            float acc[64], s[D128_NS];
+            uint32_t pa[D128_BK / 16][4];
+    #pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+            float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
 
-    // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1); s the
-    // same over keys
-    float acc[64], s[D128_NS];
-    uint32_t pa[D128_BK / 16][4];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
-    float a0, a1, rs0, rs1;
+            if constexpr (D128_OVERLAP) {
+                // Q K^T of the item's first tile
+                mbar_wait(full(it % D128_STAGES), (it / D128_STAGES) & 1);
+                if (pingpong) named_sync(my_turn, 256);
+                wgmma_fence();
+                qk128<D128_BK>(s, sQ, sKV + 2 * (it % D128_STAGES) * D128_KVTILE);
+                wgmma_commit();
+                if (pingpong) named_arrive(their_turn, 256);
+                wgmma_wait_all();
+                fence_regs(s);
+                if (n == 1 && lane == 0) mbar_arrive(barQfree);  // Q read for good
+                // a tile is masked where it crosses the diagonal of the
+                // warpgroup's rows (or above it: at 64-key tiles warpgroup 0's
+                // last tile) or holds keys past S
+                softmax_tile(s, (causal && D128_BK - 1 > w.q0 + 64 * wg)
+                                    || D128_BK > S,
+                             0, S, causal, t, row0, row1, scale_log2, m0, m1, a0,
+                             a1, rs0, rs1);
+                rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
 
-    mbar_wait(barQ, 0);
-    mbar_wait(barQ + 8, 0);
-    if (pingpong) named_sync(my_turn, 256);
-    wgmma_fence();
-    qk128<D128_BK>(s, sQ, sKV);
-    wgmma_commit();
-    if (pingpong) named_arrive(their_turn, 256);
-    wgmma_wait_all();
-    fence_regs(s);
-    softmax_tile(s, (causal && n == 1) || D128_BK > S, 0, S, causal, t,
-                 row0, row1, scale_log2, m0, m1, a0, a1, rs0, rs1);
-    rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
+                // tile j < n - 1: Q K^T of tile j + 1 and P V of tile j issued
+                // together; the softmax of j + 1 runs once the first is done, under
+                // the second.  Every product is issued outside any branch (ptxas
+                // serialises wgmma that a branch holds): the last P V is peeled off.
+                for (int j = 0; j + 1 < n; ++j, ++it) {
+                    const int st = it % D128_STAGES, nst = (it + 1) % D128_STAGES;
+                    mbar_wait(full(nst), ((it + 1) / D128_STAGES) & 1);
+                    if (pingpong) named_sync(my_turn, 256);
+                    fence_regs(acc);
+                    fence_regs(pa);
+                    wgmma_fence();
+                    qk128<D128_BK>(s, sQ, sKV + 2 * nst * D128_KVTILE);
+                    wgmma_commit();
+                    pv128(acc, pa, sKV + (2 * st + 1) * D128_KVTILE);
+                    wgmma_commit();
+                    if (pingpong) named_arrive(their_turn, 256);
+                    if constexpr (D128_OVERLAP) wgmma_wait_1();
+                    else wgmma_wait_all();
+                    fence_regs(s);
+                    if (j + 2 == n && lane == 0) mbar_arrive(barQfree);
+                    const int k0 = (j + 1) * D128_BK;
+                    softmax_tile(s, (causal && k0 + D128_BK - 1 > w.q0 + 64 * wg)
+                                        || k0 + D128_BK > S,
+                                 k0, S, causal, t, row0, row1, scale_log2, m0, m1,
+                                 a0, a1, rs0, rs1);
+                    wgmma_wait_all();
+                    fence_regs(acc);
+                    fence_regs(pa);
+                    if (lane == 0) mbar_arrive(empty(st));
+                    rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
+                }
+                if (pingpong) named_sync(my_turn, 256);
+                fence_regs(acc);
+                fence_regs(pa);
+                wgmma_fence();
+                pv128(acc, pa, sKV + (2 * (it % D128_STAGES) + 1) * D128_KVTILE);
+                wgmma_commit();
+                if (pingpong && wg == 0) named_arrive(their_turn, 256);
+                wgmma_wait_all();
+                fence_regs(acc);
+                if (lane == 0) mbar_arrive(empty(it % D128_STAGES));
+                ++it;
+            } else {
+                // each product a turn of its own: Q K^T of tile j, its
+                // softmax (under the other warpgroup's products), then P V
+                // of tile j; at most the scores and the output live at once
+                for (int j = 0; j < n; ++j, ++it) {
+                    const int st = it % D128_STAGES;
+                    const bool last = j + 1 == n;
+                    mbar_wait(full(st), (it / D128_STAGES) & 1);
+                    if (pingpong) named_sync(my_turn, 256);
+                    wgmma_fence();
+                    qk128<D128_BK>(s, sQ, sKV + 2 * st * D128_KVTILE);
+                    wgmma_commit();
+                    if (pingpong) named_arrive(their_turn, 256);
+                    wgmma_wait_all();
+                    fence_regs(s);
+                    if (last && lane == 0) mbar_arrive(barQfree);
+                    const int k0 = j * D128_BK;
+                    softmax_tile(s, (causal && k0 + D128_BK - 1 > w.q0 + 64 * wg)
+                                        || k0 + D128_BK > S,
+                                 k0, S, causal, t, row0, row1, scale_log2, m0,
+                                 m1, a0, a1, rs0, rs1);
+                    rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
+                    if (pingpong) named_sync(my_turn, 256);
+                    fence_regs(acc);
+                    fence_regs(pa);
+                    wgmma_fence();
+                    pv128(acc, pa, sKV + (2 * st + 1) * D128_KVTILE);
+                    wgmma_commit();
+                    if (pingpong && (!last || wg == 0))
+                        named_arrive(their_turn, 256);
+                    wgmma_wait_all();
+                    fence_regs(acc);
+                    fence_regs(pa);
+                    if (lane == 0) mbar_arrive(empty(st));
+                }
+            }
 
-    // tile j < n - 1: Q K^T of tile j + 1 and P V of tile j issued
-    // together; the softmax of j + 1 runs once the first is done, under the
-    // second.  Every product is issued outside any branch (ptxas serialises
-    // wgmma that a branch holds): the last tile's P V is peeled off.
-    auto release = [&](int j) {
-        const int st = j % D128_STAGES;
-        if (lane == 0) mbar_arrive(barQ + 8 * (1 + D128_STAGES + st));
-        if (!D128_PRODUCER && tid == 0 && j + D128_STAGES < n_k) {
-            mbar_wait(barQ + 8 * (1 + D128_STAGES + st),
-                      (j / D128_STAGES) & 1);
-            load_kv(j + D128_STAGES);
+            l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
+            l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
+            l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
+            l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
+            const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+
+            // epilogue: once the last item's stores have read this warpgroup's
+            // O tile, O into it in the layout TMA loads write — a row's 16-byte
+            // pieces permuted by the 128-byte swizzle, piece ^= row % 8, in each
+            // box — then two TMA stores, which drop the rows past S
+            if ((tid & 127) == 0) tma_store_wait_read();
+            named_sync(1 + wg, 128);
+            const int r0 = 16 * warp + g, r1 = r0 + 8;
+    #pragma unroll
+            for (int c = 0; c < 16; ++c) {
+                uint8_t* box = gO + (c >> 3) * D128_BOX_B + 4 * t;
+                *reinterpret_cast<__nv_bfloat162*>(
+                    box + r0 * 128 + (((c & 7) ^ (r0 & 7)) << 4)) =
+                    __floats2bfloat162_rn(acc[4 * c] / den0,
+                                          acc[4 * c + 1] / den0);
+                *reinterpret_cast<__nv_bfloat162*>(
+                    box + r1 * 128 + (((c & 7) ^ (r1 & 7)) << 4)) =
+                    __floats2bfloat162_rn(acc[4 * c + 2] / den1,
+                                          acc[4 * c + 3] / den1);
+            }
+            fence_proxy_async();
+            named_sync(1 + wg, 128);
+            if ((tid & 127) == 0) {
+                const uint32_t o = sO + wg * D128_QTILE;
+                tma_store(&map_o, o, 0, w.h, w.q0 + 64 * wg, w.b);
+                tma_store(&map_o, o + D128_BOX_B, 64, w.h, w.q0 + 64 * wg, w.b);
+                tma_store_commit();
+            }
         }
-    };
-    auto pv = [&](int j) {
-        const uint32_t sV = sKV + (2 * (j % D128_STAGES) + 1) * D128_KVTILE;
-#pragma unroll
-        for (int kk = 0; kk < D128_BK / 16; ++kk)       // keys 16 kk ..
-            wgmma_rs_n128(acc, pa[kk], make_desc(sV + kk * 16 * D128_ROW_B,
-                                                 D128_KBOX, 1024, 1));
-        wgmma_commit();
-    };
-    for (int j = 0; j + 1 < n; ++j) {
-        const int nst = (j + 1) % D128_STAGES;
-        mbar_wait(barQ + 8 * (1 + nst), ((j + 1) / D128_STAGES) & 1);
-        if (pingpong) named_sync(my_turn, 256);
-        fence_regs(acc);
-        fence_regs(pa);
-        wgmma_fence();
-        qk128<D128_BK>(s, sQ, sKV + 2 * nst * D128_KVTILE);
-        wgmma_commit();
-        pv(j);
-        if (pingpong) named_arrive(their_turn, 256);
-        if constexpr (D128_OVERLAP) wgmma_wait_1();
-        else wgmma_wait_all();
-        fence_regs(s);
-        const int k0 = (j + 1) * D128_BK;
-        softmax_tile(s, (causal && j + 2 == n) || k0 + D128_BK > S, k0, S,
-                     causal, t, row0, row1, scale_log2, m0, m1, a0, a1, rs0,
-                     rs1);
-        wgmma_wait_all();
-        fence_regs(acc);
-        fence_regs(pa);
-        release(j);
-        rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
-    }
-    if (pingpong) named_sync(my_turn, 256);
-    fence_regs(acc);
-    fence_regs(pa);
-    wgmma_fence();
-    pv(n - 1);
-    if (pingpong && wg == 0) named_arrive(their_turn, 256);
-    wgmma_wait_all();
-    fence_regs(acc);
-    release(n - 1);
-
-    l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
-    l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
-    l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
-    l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
-    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-
-    // epilogue: O into this warpgroup's Q tile (its last reader, Q K^T, is
-    // done) in the layout TMA loads write — a row's 16-byte pieces permuted
-    // by the 128-byte swizzle, piece ^= row % 8, in each box — then two TMA
-    // stores, which drop the rows past S
-    named_sync(1 + wg, 128);
-    uint8_t* gQ = gbase + (sQ - base);
-    const int r0 = 16 * warp + g, r1 = r0 + 8;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-        uint8_t* box = gQ + (c >> 3) * D128_BOX_B + 4 * t;
-        *reinterpret_cast<__nv_bfloat162*>(
-            box + r0 * 128 + (((c & 7) ^ (r0 & 7)) << 4)) =
-            __floats2bfloat162_rn(acc[4 * c] / den0, acc[4 * c + 1] / den0);
-        *reinterpret_cast<__nv_bfloat162*>(
-            box + r1 * 128 + (((c & 7) ^ (r1 & 7)) << 4)) =
-            __floats2bfloat162_rn(acc[4 * c + 2] / den1,
-                                  acc[4 * c + 3] / den1);
-    }
-    fence_proxy_async();
-    named_sync(1 + wg, 128);
-    if ((tid & 127) == 0) {
-        tma_store(&map_o, sQ, 0, h, q0 + 64 * wg, b);
-        tma_store(&map_o, sQ + D128_BOX_B, 64, h, q0 + 64 * wg, b);
-        tma_store_drain();
+        if ((tid & 127) == 0) tma_store_wait_read();
     }
 }
 
@@ -1086,9 +1181,21 @@ cudaError_t launch_tc128(const void* q, const void* k, const void* v,
         flash_tc128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         D128_SMEM);
     if (e != cudaSuccess) return e;
-    const dim3 grid(B * H, (S + D128_BQ - 1) / D128_BQ);
-    flash_tc128_kernel<<<grid, D128_THREADS, D128_SMEM, st>>>(
-        mq, mk, mv, mo, S, H, KV, scale * 1.4426950408889634f, causal);
+    // one block an SM, each walking items blockIdx.x, + gridDim.x, ...
+    const int n_qt = (S + D128_BQ - 1) / D128_BQ;
+    const int n_items = B * H * n_qt;
+    int blocks = n_items;
+    if (D128_PERSISTENT) {
+        int dev = 0, sms = 0;
+        if ((e = cudaGetDevice(&dev)) != cudaSuccess
+            || (e = cudaDeviceGetAttribute(
+                    &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+            return e;
+        blocks = n_items < sms ? n_items : sms;
+    }
+    flash_tc128_kernel<<<blocks, D128_THREADS, D128_SMEM, st>>>(
+        mq, mk, mv, mo, S, H, KV, B * H, n_qt, scale * 1.4426950408889634f,
+        causal);
     return cudaGetLastError();
 }
 

@@ -103,6 +103,15 @@ __device__ __forceinline__ void tma_store_drain() {
                  "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// the two halves of tma_store_drain, for a thread that has other work
+// before it reuses the shared memory its stores read
+__device__ __forceinline__ void tma_store_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // a barrier over `threads` threads (a multiple of 32) of the block, named
 // `id` (1 .. 15; 0 is __syncthreads')
 __device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
