@@ -369,13 +369,15 @@ def phase_build(libs) -> None:
               for f in funcs if f.get("spill_stores") or f.get("spill_loads")]
     if spills:
         raise AssertionError(f"register spills in {spills}")
-    # a setmaxnreg that ptxas could not place leaves flash_tc128_kernel's
-    # consumers at the launch's register count
-    ignored = [f"{name}: {line.strip()}" for name in sorted(libs)
-               for line in (_build.BUILD_DIR / f"{name}.nvcc.log")
-               .read_text().splitlines() if "setmaxnreg ignored" in line]
-    if ignored:
-        raise AssertionError(f"ptxas ignored setmaxnreg: {ignored}")
+    # ptxas's notes that it serialised a kernel's wgmma (a product issued in
+    # a branch, or too few registers for the accumulators): reported for
+    # every library, fatal for flash_attention, whose kernels have none
+    notes = {name: [line.strip() for line in (
+        _build.BUILD_DIR / f"{name}.nvcc.log").read_text().splitlines()
+        if "Potential Performance Loss" in line] for name in sorted(libs)}
+    if notes.get("flash_attention"):
+        raise AssertionError(f"ptxas serialised flash_attention's wgmma: "
+                             f"{notes['flash_attention']}")
     report = {}
     for lib, kernels in TC_KERNELS.items():
         sass = sass_counts(libs[lib])
@@ -407,7 +409,7 @@ def phase_build(libs) -> None:
                                          f"SASS: {c}")
         report[f"{lib}_sass"] = {"per_kernel": sass}
     emit("build_report", ptxas=ptxas, spills=False,
-         cuobjdump=find_cuobjdump(), **report)
+         performance_notes=notes, cuobjdump=find_cuobjdump(), **report)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:

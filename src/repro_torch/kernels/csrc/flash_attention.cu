@@ -68,30 +68,30 @@
 // tokens), flash_tc128_kernel: at (4, 1088, 32, 8, 128) the work is 89 MB
 // and 38.8 GFLOP causal, bound by operations (39.3 us at 989 TFLOP/s, 26.6
 // us by bytes), in 1152 items of (head, 128 q rows) averaging 4.5 key
-// tiles: what a launch pays for is the time the tensor cores stand idle,
-// in the softmax and at each item's start and end.  So the d = 80 design at
-// 128 columns (a row is two 64-column boxes at the 128-byte swizzle; 128 q
-// rows in two consumer warpgroups sharing each K / V tile through full /
-// empty mbarriers; the output by TMA store), and then what one block an SM
-// can afford:
+// tiles of 128: what a launch pays for is the time the tensor cores stand
+// idle, in the softmax and at each item's start and end.  So the d = 80
+// design at 128 columns (a row is two 64-column boxes at the 128-byte
+// swizzle; 128 q rows in two consumer warpgroups sharing each K / V tile
+// through full / empty mbarriers; the output by TMA store), and then:
 //   * persistent blocks, one an SM, each walking items longest first; a
-//     producer warpgroup whose one thread loads the next item's Q as soon
-//     as the last Q K^T of the current one is done and keeps a two-stage
-//     ring of 128-key tiles full across items; the output leaves through
-//     O tiles of its own, so an item's stores overlap the next one's work;
-//   * the producer gives its registers up (setmaxnreg to 40) and the two
-//     consumer warpgroups take them (232), for the 64 score, 64 output and
-//     32 P registers a thread of an m64n128 product needs;
-//   * Q K^T as m64n128 (eight k16 steps) and P V as eight m64n128 steps
-//     with P from registers; a warpgroup issues Q K^T of tile j + 1 before
-//     P V of tile j and runs the softmax of j + 1 as soon as the first is
-//     done, under the second;
-//   * ping-pong: two named barriers let the warpgroups issue their products
-//     in turn, so one's softmax runs under the other's products;
+//     producer warp whose one thread loads the next item's Q as soon as the
+//     last Q K^T of the current one is done and keeps a two-stage ring of
+//     128-key tiles full across items; the output leaves through O tiles of
+//     its own, so an item's stores finish under the next one's work;
+//   * Q K^T as m64n128 (eight k16 steps; at 64 keys, m64n64, its shared
+//     memory reads match the tensor cores' rate) and P V as eight m64n128
+//     steps with P from registers;
+//   * each warpgroup runs Q K^T, the softmax and P V in turn, waiting for
+//     each product: the two warpgroups' products fill each other's softmax.
+//     The overlapped forms (P V of tile j under Q K^T of tile j + 1, or
+//     ping-pong by named barriers) hold the scores, the output and P live
+//     at once, and ptxas then spilled at 128-key tiles or gained nothing
+//     (PERF.md, PR 23); a producer warpgroup that gives its registers up
+//     by setmaxnreg was no faster than the warp;
 //   * both warpgroups walk the same tiles (the diagonal 128-key tile is the
 //     last of each) and skip all tiles above it; in an item whose second
 //     warpgroup holds no row (S = 1088 ends half way into one) the first
-//     runs alone, without ping-pong, and the second only releases tiles.
+//     runs alone and the second only releases tiles.
 // Its arithmetic is the other head dims'.
 //
 // float32: the products stay f32 FMAs on the CUDA cores (inputs staged in
@@ -733,7 +733,7 @@ cudaError_t launch_tc80(const void* q, const void* k, const void* v, void* o,
 
 // --------------------------------------------------------------------------
 // bfloat16 at head dim 128: persistent blocks, each walking (head, q tile)
-// items with a producer warpgroup and two consumer warpgroups
+// items with two consumer warpgroups and a producer warp
 // --------------------------------------------------------------------------
 // The D = 128 tile plan: the TMA boxes of one row of 128 columns, each
 // {columns, swizzle row bytes} — two 64-column boxes at the 128-byte
@@ -744,58 +744,18 @@ static_assert(D128_BOX_COLS[0] + D128_BOX_COLS[1] == 128
               && D128_BOX_COLS[0] * 2 == D128_BOX_ROW_B[0]
               && D128_BOX_COLS[1] * 2 == D128_BOX_ROW_B[1],
               "the D = 128 boxes cover 128 columns, each one swizzle row");
-// The plan's measured alternatives stay build-time switches, so that
-// tools/flash128_variants.py can build each one beside the kept plan:
-// persistent blocks (else one block an item), ping-pong of the two
-// consumer warpgroups' products, and the softmax of tile j + 1 run while
-// P V of tile j is in flight.
-#ifndef REPRO_FLASH128_PERSISTENT
-#define REPRO_FLASH128_PERSISTENT 1
-#endif
-#ifndef REPRO_FLASH128_PINGPONG
-#define REPRO_FLASH128_PINGPONG 0
-#endif
-#ifndef REPRO_FLASH128_OVERLAP
-#define REPRO_FLASH128_OVERLAP 0
-#endif
-#ifndef REPRO_FLASH128_PRODUCER_WG
-#define REPRO_FLASH128_PRODUCER_WG 0
-#endif
-#ifndef REPRO_FLASH128_KEYS
-#define REPRO_FLASH128_KEYS 128
-#endif
-// attribution only (wrong results): no K / V tile reloaded once the ring
-// is full; no exponentials in the softmax
-#ifndef REPRO_FLASH128_DIAG_NO_RELOAD
-#define REPRO_FLASH128_DIAG_NO_RELOAD 0
-#endif
-#ifndef REPRO_FLASH128_DIAG_NO_EXP
-#define REPRO_FLASH128_DIAG_NO_EXP 0
-#endif
-constexpr bool D128_PRODUCER_WG = REPRO_FLASH128_PRODUCER_WG;
-constexpr bool D128_PERSISTENT = REPRO_FLASH128_PERSISTENT;
-constexpr bool D128_PINGPONG = REPRO_FLASH128_PINGPONG;
-constexpr bool D128_OVERLAP = REPRO_FLASH128_OVERLAP;
-constexpr int D128_BK = REPRO_FLASH128_KEYS;       // keys a k tile
-static_assert(D128_BK == 64 || D128_BK == 128, "Q K^T is m64n64 or m64n128");
-constexpr int D128_STAGES = 256 / D128_BK;         // K/V ring: 128 KB
+constexpr int D128_BK = 128;                       // keys a k tile
+constexpr int D128_STAGES = 2;                     // K/V ring depth
 constexpr int D128_WG = 2;                         // consumer warpgroups
 constexpr int D128_BQ = 64 * D128_WG;              // q rows an item
-// + the producer: one warp (every thread then has 224 registers), or a
-// warpgroup that gives its registers up to the consumers by setmaxnreg:
-// 128 x 40 + 256 x 232 = 64 512 of the SM's 65 536
-constexpr int D128_THREADS = 128 * D128_WG + (D128_PRODUCER_WG ? 128 : 32);
-#ifndef REPRO_FLASH128_PRODUCER_REGS
-#define REPRO_FLASH128_PRODUCER_REGS 40
-#endif
-constexpr int D128_PRODUCER_REGS = REPRO_FLASH128_PRODUCER_REGS;
-constexpr int D128_CONSUMER_REGS =
-    (65536 / 128 - D128_PRODUCER_REGS) / D128_WG / 8 * 8;
+// + one producer warp: nine warps leave 168 registers a thread (an SM
+// partition's 16K over three warps), which the sequential loop below fits
+constexpr int D128_THREADS = 128 * D128_WG + 32;
 constexpr int D128_ROW_B = D128_BOX_ROW_B[0];      // a box's row: 128 B
 constexpr int D128_BOX_B = 64 * D128_ROW_B;         // 64 rows of a box: 8 KB
 constexpr int D128_QTILE = 2 * D128_BOX_B;          // 64 q rows: 16 KB
-constexpr int D128_KBOX = D128_BK * D128_ROW_B;     // BK rows of a box
-constexpr int D128_KVTILE = 2 * D128_KBOX;          // BK keys of K (or V)
+constexpr int D128_KBOX = D128_BK * D128_ROW_B;     // 128 rows of a box
+constexpr int D128_KVTILE = 2 * D128_KBOX;          // 128 keys of K (or V)
 constexpr int D128_NS = D128_BK / 2;                // score registers
 // Q and O (a tile of each a warpgroup), the K/V ring, then the mbarriers
 // (Q full, Q empty, STAGES full, STAGES empty), and alignment: 193 KB, one
@@ -804,24 +764,22 @@ constexpr int D128_SMEM = 2 * D128_WG * D128_QTILE
     + 2 * D128_STAGES * D128_KVTILE + 1024 + 8 * (2 + 2 * D128_STAGES);
 static_assert(D128_SMEM <= 232448, "one block's shared memory");
 
-// S = Q K^T over the 128 columns: eight k16 steps, four in each box (Q's
-// box holds 64 rows, K's NK); K is one N = NK operand of NK / 8 atoms
-template <int NK>
-__device__ __forceinline__ void qk128(float (&s)[NK / 2], uint32_t sQ,
+// S = Q K^T over the 128 columns: eight m64n128k16 steps, four in each box
+// (Q's box holds 64 rows, K's 128: one N = 128 operand of 16 atoms)
+__device__ __forceinline__ void qk128(float (&s)[D128_NS], uint32_t sQ,
                                       uint32_t sK) {
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
         const uint32_t col = (kk & 3) * 32;
-        const uint64_t dq = make_desc(sQ + (kk >> 2) * D128_BOX_B + col, 16,
-                                      1024, 1);
-        const uint64_t dk = make_desc(sK + (kk >> 2) * NK * D128_ROW_B + col,
-                                      16, 1024, 1);
-        if constexpr (NK == 128) wgmma_ss_n128(s, dq, dk, kk > 0);
-        else wgmma_ss_n64(s, dq, dk, kk > 0);
+        wgmma_ss_n128(s, make_desc(sQ + (kk >> 2) * D128_BOX_B + col, 16,
+                                   1024, 1),
+                      make_desc(sK + (kk >> 2) * D128_KBOX + col, 16, 1024,
+                                1),
+                      kk > 0);
     }
 }
 
-// O += P V over the keys of one tile: BK / 16 m64n128k16 steps, P from
+// O += P V over the 128 keys of one tile: eight m64n128k16 steps, P from
 // registers, V MN-major (its two column boxes D128_KBOX apart)
 __device__ __forceinline__ void pv128(float (&acc)[64],
                                       const uint32_t (&pa)[D128_BK / 16][4],
@@ -867,18 +825,16 @@ __device__ __forceinline__ void softmax_tile(
     rs1 = 0.0f;
 #pragma unroll
     for (int i = 0; i < D128_NS; ++i) {
-        const float p = REPRO_FLASH128_DIAG_NO_EXP
-            ? fmaf(s[i], scale_log2, (i & 2) ? off1 : off0)
-            : ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+        const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
         s[i] = p;
         if (i & 2) rs1 += p;
         else rs0 += p;
     }
 }
 
-// Once P V of the earlier tiles has landed: their rescale, l (this lane's
-// share; the quad sums last), and P rounded to bf16 as the A fragments of
-// the next P V, pairwise from the score accumulator.
+// The earlier tiles' rescale, l (this lane's share; the quad sums last),
+// and P rounded to bf16 as the A fragments of P V, pairwise from the score
+// accumulator.
 __device__ __forceinline__ void rescale_pack(
         float (&acc)[64], const float (&s)[D128_NS],
         uint32_t (&pa)[D128_BK / 16][4], float a0, float a1, float rs0,
@@ -944,19 +900,17 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     __syncthreads();
 
-    // the warpgroup, as a value the compiler knows is the same across a warp
-    // (ptxas places setmaxnreg only on such branches)
+    // the warpgroup as a value the compiler knows is one across a warp: the
+    // branches on it are then uniform, and the consumers' products are
+    // issued outside divergent code (measured 10 % faster than tid >> 7
+    // with an early return for the producer warp, PERF.md PR 23)
     const int wg = __shfl_sync(FULL_WARP, tid >> 7, 0);
-
-    // The producer warpgroup: one thread loads each item's two Q tiles once
-    // the consumers are done with the last ones (rows past S arrive as
-    // zeros), and keeps the ring of K / V tiles full across items; the
-    // registers the warpgroup gives up go to the consumers, and it never
-    // rejoins them.
     if (wg >= D128_WG) {
-        if constexpr (D128_PRODUCER_WG) setmaxnreg_dec<D128_PRODUCER_REGS>();
+        // The producer warp: one thread loads each item's two Q tiles once
+        // the consumers are done with the last ones (rows past S arrive as
+        // zeros), and keeps the ring of K / V tiles full across items.
         if (tid == 128 * D128_WG) {
-            int it = 0;                              // ring tiles so far
+            int it = 0;                                  // ring tiles so far
             int local = 0;                               // this block's items
             for (int item = blockIdx.x; item < n_items;
                  item += gridDim.x, ++local) {
@@ -966,167 +920,88 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
                 mbar_expect_tx(barQ, D128_WG * D128_QTILE);
                 for (int g = 0; g < D128_WG; ++g)
                     for (int c = 0; c < 2; ++c)
-                        tma_load(&map_q, base + g * D128_QTILE + c * D128_BOX_B,
+                        tma_load(&map_q,
+                                 base + g * D128_QTILE + c * D128_BOX_B,
                                  barQ, 64 * c, w.h, w.q0 + 64 * g, w.b);
                 for (int j = 0; j < w.n; ++j, ++it) {
                     const int st = it % D128_STAGES;
                     if (it >= D128_STAGES)
                         mbar_wait(empty(st), (it / D128_STAGES - 1) & 1);
                     const uint32_t sK = sKV + 2 * st * D128_KVTILE;
-                    if (REPRO_FLASH128_DIAG_NO_RELOAD && it >= D128_STAGES) {
-                        mbar_arrive(full(st));
-                        continue;
-                    }
                     mbar_expect_tx(full(st), 2 * D128_KVTILE);
                     for (int c = 0; c < 2; ++c)
                         for (int r = 0; r < D128_BK / 64; ++r) {
-                            const uint32_t off = c * D128_KBOX + r * D128_BOX_B;
+                            const uint32_t off =
+                                c * D128_KBOX + r * D128_BOX_B;
                             const int s0 = j * D128_BK + 64 * r;
-                            tma_load(&map_k, sK + off, full(st), 64 * c, kvh, s0,
-                                     w.b);
-                            tma_load(&map_v, sK + D128_KVTILE + off,
-                                     full(st), 64 * c, kvh, s0, w.b);
+                            tma_load(&map_k, sK + off, full(st), 64 * c, kvh,
+                                     s0, w.b);
+                            tma_load(&map_v, sK + D128_KVTILE + off, full(st),
+                                     64 * c, kvh, s0, w.b);
                         }
                 }
             }
         }
     } else {
-        if constexpr (D128_PRODUCER_WG) setmaxnreg_inc<D128_CONSUMER_REGS>();
         const int warp = (tid >> 5) & 3, lane = tid & 31;
-        const int g = lane >> 2, t = lane & 3;            // fragment row / col pair
+        const int g = lane >> 2, t = lane & 3;    // fragment row / col pair
         const uint32_t sQ = base + wg * D128_QTILE;
         uint8_t* gO = gbase + (sO - base) + wg * D128_QTILE;
-        // ping-pong: named barrier 3 + w lets warpgroup w issue its next
-        // products, the other arrives at it once it has issued its own;
-        // warpgroup 0 goes first, and warpgroup 1 skips its last arrival of an
-        // item, which nobody would wait for
-        const uint32_t my_turn = 3 + wg, their_turn = 4 - wg;
-        // the rescale and row sums of the tile last through the softmax
-        float a0, a1, rs0, rs1;
         int it = 0, local = 0;
-        for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++local) {
+        for (int item = blockIdx.x; item < n_items;
+             item += gridDim.x, ++local) {
             const Item128 w(item, BH, H, n_qt, S, causal);
-            const int n = w.n;
             mbar_wait(barQ, local & 1);
             if (wg >= w.n_wg) {
                 // rows all past S: release Q and every tile as the other reads
                 if (lane == 0) mbar_arrive(barQfree);
-                for (int j = 0; j < n; ++j, ++it) {
+                for (int j = 0; j < w.n; ++j, ++it) {
                     const int st = it % D128_STAGES;
                     mbar_wait(full(st), (it / D128_STAGES) & 1);
                     if (lane == 0) mbar_arrive(empty(st));
                 }
                 continue;
             }
-            const bool pingpong = D128_PINGPONG && w.n_wg == 2;
-            if (pingpong && wg == 1) named_arrive(3, 256);
             const int row0 = w.q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
 
             // acc[4c + e]: row (e < 2 ? g : g + 8), column 8c + 2t + (e & 1);
             // s the same over keys
             float acc[64], s[D128_NS];
             uint32_t pa[D128_BK / 16][4];
-    #pragma unroll
+#pragma unroll
             for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
             float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+            float a0, a1, rs0, rs1;
 
-            if constexpr (D128_OVERLAP) {
-                // Q K^T of the item's first tile
-                mbar_wait(full(it % D128_STAGES), (it / D128_STAGES) & 1);
-                if (pingpong) named_sync(my_turn, 256);
+            // tile j: Q K^T, its softmax, then P V, each product waited for
+            // before the next: at most the scores and the output are live, and
+            // the other warpgroup's products run under this one's softmax
+            for (int j = 0; j < w.n; ++j, ++it) {
+                const int st = it % D128_STAGES;
+                mbar_wait(full(st), (it / D128_STAGES) & 1);
                 wgmma_fence();
-                qk128<D128_BK>(s, sQ, sKV + 2 * (it % D128_STAGES) * D128_KVTILE);
+                qk128(s, sQ, sKV + 2 * st * D128_KVTILE);
                 wgmma_commit();
-                if (pingpong) named_arrive(their_turn, 256);
                 wgmma_wait_all();
                 fence_regs(s);
-                if (n == 1 && lane == 0) mbar_arrive(barQfree);  // Q read for good
-                // a tile is masked where it crosses the diagonal of the
-                // warpgroup's rows (or above it: at 64-key tiles warpgroup 0's
-                // last tile) or holds keys past S
-                softmax_tile(s, (causal && D128_BK - 1 > w.q0 + 64 * wg)
-                                    || D128_BK > S,
-                             0, S, causal, t, row0, row1, scale_log2, m0, m1, a0,
-                             a1, rs0, rs1);
+                if (j + 1 == w.n && lane == 0) mbar_arrive(barQfree);
+                // masked where the tile crosses the diagonal of this
+                // warpgroup's rows or holds keys past S
+                const int k0 = j * D128_BK;
+                softmax_tile(s, (causal && k0 + D128_BK - 1 > w.q0 + 64 * wg)
+                                    || k0 + D128_BK > S,
+                             k0, S, causal, t, row0, row1, scale_log2, m0, m1,
+                             a0, a1, rs0, rs1);
                 rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
-
-                // tile j < n - 1: Q K^T of tile j + 1 and P V of tile j issued
-                // together; the softmax of j + 1 runs once the first is done, under
-                // the second.  Every product is issued outside any branch (ptxas
-                // serialises wgmma that a branch holds): the last P V is peeled off.
-                for (int j = 0; j + 1 < n; ++j, ++it) {
-                    const int st = it % D128_STAGES, nst = (it + 1) % D128_STAGES;
-                    mbar_wait(full(nst), ((it + 1) / D128_STAGES) & 1);
-                    if (pingpong) named_sync(my_turn, 256);
-                    fence_regs(acc);
-                    fence_regs(pa);
-                    wgmma_fence();
-                    qk128<D128_BK>(s, sQ, sKV + 2 * nst * D128_KVTILE);
-                    wgmma_commit();
-                    pv128(acc, pa, sKV + (2 * st + 1) * D128_KVTILE);
-                    wgmma_commit();
-                    if (pingpong) named_arrive(their_turn, 256);
-                    if constexpr (D128_OVERLAP) wgmma_wait_1();
-                    else wgmma_wait_all();
-                    fence_regs(s);
-                    if (j + 2 == n && lane == 0) mbar_arrive(barQfree);
-                    const int k0 = (j + 1) * D128_BK;
-                    softmax_tile(s, (causal && k0 + D128_BK - 1 > w.q0 + 64 * wg)
-                                        || k0 + D128_BK > S,
-                                 k0, S, causal, t, row0, row1, scale_log2, m0, m1,
-                                 a0, a1, rs0, rs1);
-                    wgmma_wait_all();
-                    fence_regs(acc);
-                    fence_regs(pa);
-                    if (lane == 0) mbar_arrive(empty(st));
-                    rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
-                }
-                if (pingpong) named_sync(my_turn, 256);
                 fence_regs(acc);
                 fence_regs(pa);
                 wgmma_fence();
-                pv128(acc, pa, sKV + (2 * (it % D128_STAGES) + 1) * D128_KVTILE);
+                pv128(acc, pa, sKV + (2 * st + 1) * D128_KVTILE);
                 wgmma_commit();
-                if (pingpong && wg == 0) named_arrive(their_turn, 256);
                 wgmma_wait_all();
                 fence_regs(acc);
-                if (lane == 0) mbar_arrive(empty(it % D128_STAGES));
-                ++it;
-            } else {
-                // each product a turn of its own: Q K^T of tile j, its
-                // softmax (under the other warpgroup's products), then P V
-                // of tile j; at most the scores and the output live at once
-                for (int j = 0; j < n; ++j, ++it) {
-                    const int st = it % D128_STAGES;
-                    const bool last = j + 1 == n;
-                    mbar_wait(full(st), (it / D128_STAGES) & 1);
-                    if (pingpong) named_sync(my_turn, 256);
-                    wgmma_fence();
-                    qk128<D128_BK>(s, sQ, sKV + 2 * st * D128_KVTILE);
-                    wgmma_commit();
-                    if (pingpong) named_arrive(their_turn, 256);
-                    wgmma_wait_all();
-                    fence_regs(s);
-                    if (last && lane == 0) mbar_arrive(barQfree);
-                    const int k0 = j * D128_BK;
-                    softmax_tile(s, (causal && k0 + D128_BK - 1 > w.q0 + 64 * wg)
-                                        || k0 + D128_BK > S,
-                                 k0, S, causal, t, row0, row1, scale_log2, m0,
-                                 m1, a0, a1, rs0, rs1);
-                    rescale_pack(acc, s, pa, a0, a1, rs0, rs1, l0, l1);
-                    if (pingpong) named_sync(my_turn, 256);
-                    fence_regs(acc);
-                    fence_regs(pa);
-                    wgmma_fence();
-                    pv128(acc, pa, sKV + (2 * st + 1) * D128_KVTILE);
-                    wgmma_commit();
-                    if (pingpong && (!last || wg == 0))
-                        named_arrive(their_turn, 256);
-                    wgmma_wait_all();
-                    fence_regs(acc);
-                    fence_regs(pa);
-                    if (lane == 0) mbar_arrive(empty(st));
-                }
+                fence_regs(pa);
+                if (lane == 0) mbar_arrive(empty(st));
             }
 
             l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
@@ -1135,14 +1010,15 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
             l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
             const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
 
-            // epilogue: once the last item's stores have read this warpgroup's
-            // O tile, O into it in the layout TMA loads write — a row's 16-byte
-            // pieces permuted by the 128-byte swizzle, piece ^= row % 8, in each
-            // box — then two TMA stores, which drop the rows past S
+            // epilogue: once the last item's stores have read this
+            // warpgroup's O tile, O into it in the layout TMA loads write —
+            // a row's 16-byte pieces permuted by the 128-byte swizzle,
+            // piece ^= row % 8, in each box — then two TMA stores, which
+            // drop the rows past S and finish under the next item's work
             if ((tid & 127) == 0) tma_store_wait_read();
             named_sync(1 + wg, 128);
             const int r0 = 16 * warp + g, r1 = r0 + 8;
-    #pragma unroll
+#pragma unroll
             for (int c = 0; c < 16; ++c) {
                 uint8_t* box = gO + (c >> 3) * D128_BOX_B + 4 * t;
                 *reinterpret_cast<__nv_bfloat162*>(
@@ -1159,7 +1035,8 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
             if ((tid & 127) == 0) {
                 const uint32_t o = sO + wg * D128_QTILE;
                 tma_store(&map_o, o, 0, w.h, w.q0 + 64 * wg, w.b);
-                tma_store(&map_o, o + D128_BOX_B, 64, w.h, w.q0 + 64 * wg, w.b);
+                tma_store(&map_o, o + D128_BOX_B, 64, w.h, w.q0 + 64 * wg,
+                          w.b);
                 tma_store_commit();
             }
         }
@@ -1182,18 +1059,15 @@ cudaError_t launch_tc128(const void* q, const void* k, const void* v,
         D128_SMEM);
     if (e != cudaSuccess) return e;
     // one block an SM, each walking items blockIdx.x, + gridDim.x, ...
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess
+        || (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev)) != cudaSuccess)
+        return e;
     const int n_qt = (S + D128_BQ - 1) / D128_BQ;
     const int n_items = B * H * n_qt;
-    int blocks = n_items;
-    if (D128_PERSISTENT) {
-        int dev = 0, sms = 0;
-        if ((e = cudaGetDevice(&dev)) != cudaSuccess
-            || (e = cudaDeviceGetAttribute(
-                    &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-            return e;
-        blocks = n_items < sms ? n_items : sms;
-    }
-    flash_tc128_kernel<<<blocks, D128_THREADS, D128_SMEM, st>>>(
+    flash_tc128_kernel<<<n_items < sms ? n_items : sms, D128_THREADS,
+                         D128_SMEM, st>>>(
         mq, mk, mv, mo, S, H, KV, B * H, n_qt, scale * 1.4426950408889634f,
         causal);
     return cudaGetLastError();

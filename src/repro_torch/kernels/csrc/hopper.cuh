@@ -118,23 +118,6 @@ __device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-// arrives at named barrier `id` of `threads` threads without waiting: the
-// other side of a named_sync by the rest of them
-__device__ __forceinline__ void named_arrive(uint32_t id, uint32_t threads) {
-    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// this warpgroup's registers a thread, lowered or raised to R (a multiple of
-// 8 in [24, 256]); every warp of the warpgroup executes it
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
 // one 1-D bulk copy of `bytes` contiguous bytes, global -> shared, completing
 // as transaction bytes on `bar`; no tensor map.  `bytes`, `src` and `dst`
 // must all be multiples of 16 (the copy is never rounded up past the end)
@@ -177,10 +160,6 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-// waits for every committed group but the newest
-__device__ __forceinline__ void wgmma_wait_1() {
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
 // keeps the compiler from moving accumulator reads / writes across the
 // asynchronous wgmma region
 template <int N>
@@ -195,7 +174,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll
-        for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+        for (int j = 0; j < N; ++j)
+            asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory

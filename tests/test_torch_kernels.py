@@ -725,8 +725,8 @@ def test_flash_head_dim_80_tile_plan_is_exactly_80_columns():
 
 
 def _flash128_key_tile(src: str) -> int:
-    """The d = 128 route's key tile (``REPRO_FLASH128_KEYS``'s default)."""
-    return int(re.search(r"#define REPRO_FLASH128_KEYS (\d+)", src).group(1))
+    """The d = 128 route's key tile (``D128_BK``)."""
+    return int(re.search(r"constexpr int D128_BK = (\d+);", src).group(1))
 
 
 @pytest.mark.parametrize("causal", (True, False))
@@ -746,9 +746,9 @@ def test_flash_attention_bf16_d128_route_matches_reference(B, S, H, KV,
 def test_flash_head_dim_128_tile_plan_is_two_full_boxes():
     """The d = 128 route's tile plan in ``csrc/flash_attention.cu``: its TMA
     boxes' columns sum to 128, each box's columns fill its swizzle row, its
-    key tile is a whole number of the boxes' 64 rows and is the one the
-    emulation above takes, and ``launch_tc<128>`` reaches
-    ``flash_tc128_kernel``: no head dim is left on the d <= 64 tile."""
+    key tile (the one the emulation above takes) is 128, and
+    ``launch_tc<128>`` reaches ``flash_tc128_kernel``: no head dim is left
+    on the d <= 64 tile."""
     src = _flash_source()
     cols = [int(c) for c in re.search(
         r"D128_BOX_COLS\[2\] = \{(\d+), (\d+)\}", src).groups()]
@@ -757,9 +757,7 @@ def test_flash_head_dim_128_tile_plan_is_two_full_boxes():
     assert sum(cols) == 128
     assert all(r in (32, 64, 128) and 2 * c == r
                for c, r in zip(cols, row_b))
-    keys = _flash128_key_tile(src)
-    assert keys in (64, 128)
-    assert re.search(r"constexpr int D128_BK = REPRO_FLASH128_KEYS;", src)
+    assert _flash128_key_tile(src) == 128
     launcher = re.search(r"cudaError_t launch_tc<128>\(.*?\n}", src,
                          re.S).group(0)
     assert "launch_tc128(" in launcher
