@@ -7,10 +7,12 @@ reading the ``[B, S, H, d]`` / ``[B, S, KV, d]`` layouts of the model zoo
 directly (no head transposes, no repeated KV heads).  The kernel is
 ``csrc/flash_attention.cu``: bfloat16 inputs run on the tensor cores
 (``wgmma`` fed by TMA, P rounded to bfloat16 before ``P v``), float32 inputs
-on the CUDA cores in float32; a head dim of 80 (zamba2's) runs on both
-routes, the bf16 one in a design of its own: tiles exactly 80 columns wide
-(a 64-column and a 16-column TMA box), 128 query rows a block in two
-warpgroups that share each key / value tile.  This module is its launcher.
+on the CUDA cores in float32; head dims 80 (zamba2's) and 128 (llava's) run
+on both routes, the bf16 one in designs of their own: at 80, tiles exactly
+80 columns wide (a 64-column and a 16-column TMA box), 128 query rows a
+block in two warpgroups that share each key / value tile; at 128, one
+persistent block an SM walking (head, 128 query rows) items, fed by a
+producer warp.  This module is its launcher.
 The plain
 version is :func:`repro_torch.kernels.ref.attention_ref`.
 """
