@@ -83,11 +83,11 @@
 //     steps with P from registers;
 //   * each warpgroup runs Q K^T, the softmax and P V in turn, waiting for
 //     each product: the two warpgroups' products fill each other's softmax.
-//     The overlapped forms (P V of tile j under Q K^T of tile j + 1, or
-//     ping-pong by named barriers) hold the scores, the output and P live
-//     at once, and ptxas then spilled at 128-key tiles or gained nothing
-//     (PERF.md, PR 23); a producer warpgroup that gives its registers up
-//     by setmaxnreg was no faster than the warp;
+//     Issuing P V of tile j with Q K^T of tile j + 1 holds the scores, the
+//     output and P live at once, and ptxas spilled at 128-key tiles;
+//     ping-pong by named barriers was slower, and a producer warpgroup
+//     that gives its registers up by setmaxnreg no faster than the warp
+//     (PERF.md);
 //   * both warpgroups walk the same tiles (the diagonal 128-key tile is the
 //     last of each) and skip all tiles above it; in an item whose second
 //     warpgroup holds no row (S = 1088 ends half way into one) the first
@@ -903,7 +903,7 @@ flash_tc128_kernel(const __grid_constant__ CUtensorMap map_q,
     // the warpgroup as a value the compiler knows is one across a warp: the
     // branches on it are then uniform, and the consumers' products are
     // issued outside divergent code (measured 10 % faster than tid >> 7
-    // with an early return for the producer warp, PERF.md PR 23)
+    // with an early return for the producer warp, PERF.md)
     const int wg = __shfl_sync(FULL_WARP, tid >> 7, 0);
     if (wg >= D128_WG) {
         // The producer warp: one thread loads each item's two Q tiles once
