@@ -57,6 +57,7 @@ from repro_torch.models.common import (REMATS, STACKED, ParamDef,
                                        param_count_tree, param_specs,
                                        rms_norm, scan_layers, split_layers,
                                        split_stacked, stack_defs, tree_map)
+from repro_torch.obs.spans import span
 
 Tree = Any
 
@@ -263,15 +264,17 @@ class Model:
     @_mesh_aware
     def prefill(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
         f = self.cfg.family
-        if f == "ssm":
-            return _ssm_lm_prefill(params, batch, self.cfg, self.impl)
-        if f == "hybrid":
-            return hybrid.hybrid_prefill(params, batch, self.cfg,
-                                         impl=self.impl)
-        if f == "audio":
-            return encdec.encdec_prefill(params, batch, self.cfg,
-                                         impl=self.impl)
-        return transformer.lm_prefill(params, batch, self.cfg, impl=self.impl)
+        with span("repro.prefill"):
+            if f == "ssm":
+                return _ssm_lm_prefill(params, batch, self.cfg, self.impl)
+            if f == "hybrid":
+                return hybrid.hybrid_prefill(params, batch, self.cfg,
+                                             impl=self.impl)
+            if f == "audio":
+                return encdec.encdec_prefill(params, batch, self.cfg,
+                                             impl=self.impl)
+            return transformer.lm_prefill(params, batch, self.cfg,
+                                          impl=self.impl)
 
     @_mesh_aware
     def decode_step(self, params: Tree, cache: Tree, batch: Dict

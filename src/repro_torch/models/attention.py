@@ -32,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (ParamDef, apply_rope, mesh_einsum,
                                        model_extent, rms_norm, shard_as)
+from repro_torch.obs.spans import span
 
 NEG_INF = -1e30
 
@@ -154,12 +155,13 @@ def gqa_defs(cfg: ArchConfig, num_heads=None,
 
 
 def _project_qkv(p, x, kv_x, cfg):
-    q = mesh_einsum("bsd,dhe->bshe", x, p["wq"])
-    k = mesh_einsum("bsd,dhe->bshe", kv_x, p["wk"])
-    v = mesh_einsum("bsd,dhe->bshe", kv_x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return q, k, v
+    with span("repro.attn.qkv"):
+        q = mesh_einsum("bsd,dhe->bshe", x, p["wq"])
+        k = mesh_einsum("bsd,dhe->bshe", kv_x, p["wk"])
+        v = mesh_einsum("bsd,dhe->bshe", kv_x, p["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        return q, k, v
 
 
 def gqa_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -179,11 +181,13 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     S = x.shape[1]
     chunk = cfg.attn_chunk_q if (S >= cfg.attn_chunk_threshold
                                  and causal) else None
-    if impl == "flash" and causal and kv_x is None:
-        out = kops.flash_attention(*mesh_heads(q, k, v), causal=True)
-    else:
-        out = sdpa(q, k, v, causal=causal, chunk_q=chunk)
-    y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
+    with span("repro.attn.core"):
+        if impl == "flash" and causal and kv_x is None:
+            out = kops.flash_attention(*mesh_heads(q, k, v), causal=True)
+        else:
+            out = sdpa(q, k, v, causal=causal, chunk_q=chunk)
+    with span("repro.attn.out"):
+        y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, {"k": k, "v": v}
 
 

@@ -41,6 +41,8 @@ from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.obs.spans import span
+
 Tree = Any
 
 # the subtrees of a parameter tree that the reference stacks on a leading
@@ -190,7 +192,8 @@ def scan_layers(body: Callable, carry, xs: Sequence):
         ys.append(y)
     if not ys or ys[0] is None:
         return carry, None
-    return carry, stack_trees(ys)
+    with span("repro.cache.stack"):
+        return carry, stack_trees(ys)
 
 
 # --------------------------------------------------------------------------- #
@@ -234,10 +237,11 @@ def checkpointed(fn: Callable, remat: str) -> Callable:
 # --------------------------------------------------------------------------- #
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    return (y * weight.float()).to(x.dtype)
+    with span("repro.rms_norm"):
+        x32 = x.float()
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps)
+        return (y * weight.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -248,14 +252,15 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, device=x.device)              # [hd/2]
-    angles = positions[..., :, None].float() * freqs            # [..., S, hd/2]
-    cos = torch.cos(angles)[..., :, None, :]                    # [..., S, 1, hd/2]
-    sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    with span("repro.rope"):
+        hd = x.shape[-1]
+        freqs = rope_freqs(hd, theta, device=x.device)      # [hd/2]
+        angles = positions[..., :, None].float() * freqs    # [..., S, hd/2]
+        cos = torch.cos(angles)[..., :, None, :]        # [..., S, 1, hd/2]
+        sin = torch.sin(angles)[..., :, None, :]
+        x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+        return out.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=8)
@@ -287,9 +292,12 @@ def sinusoidal_position(length: int, d_model: int, pos: int,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = mesh_einsum("...d,df->...f", x, w_gate)
-    u = mesh_einsum("...d,df->...f", x, w_up)
-    return mesh_einsum("...f,fd->...d", F.silu(g) * u, w_down)
+    with span("repro.mlp"):
+        g = mesh_einsum("...d,df->...f", x, w_gate)
+        u = mesh_einsum("...d,df->...f", x, w_up)
+        with span("repro.mlp.gate"):
+            a = F.silu(g) * u
+        return mesh_einsum("...f,fd->...d", a, w_down)
 
 
 def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:

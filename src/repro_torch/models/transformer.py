@@ -30,6 +30,7 @@ from repro_torch.models.common import (ParamDef, checkpointed,
                                        mesh_einsum, mlp_defs, rms_norm,
                                        scan_layers, shard_batch, split_layers,
                                        stack_defs, swiglu)
+from repro_torch.obs.spans import span
 
 Tree = Any
 
@@ -120,8 +121,9 @@ def _block(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
 def _layer_fwd(h: torch.Tensor, lp: Dict, cfg: ArchConfig,
                impl: str) -> Tuple[torch.Tensor, Dict]:
     """One layer; returns (output, the layer's cache contents)."""
-    out, kv, _ = _block(h, lp, cfg, impl)
-    return out, kv
+    with span("repro.layer"):
+        out, kv, _ = _block(h, lp, cfg, impl)
+        return out, kv
 
 
 def _layer_train(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
@@ -131,9 +133,10 @@ def _layer_train(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
 
 
 def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return mesh_einsum("bsd,dv->bsv", h, w)
+    with span("repro.logits"):
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return mesh_einsum("bsd,dv->bsv", h, w)
 
 
 def _embed_tokens(params: Tree, tokens: torch.Tensor,
@@ -145,10 +148,11 @@ def _embed_tokens(params: Tree, tokens: torch.Tensor,
 def _embed_inputs(params: Tree, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
     """Token embeddings; a VLM prepends the precomputed patch embeddings
     (the vision tower is a stub, as in the reference)."""
-    h = _embed_tokens(params, batch["tokens"], cfg)
-    if cfg.vlm is not None and "patch_embeds" in batch:
-        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
-    return shard_batch(h)
+    with span("repro.embed"):
+        h = _embed_tokens(params, batch["tokens"], cfg)
+        if cfg.vlm is not None and "patch_embeds" in batch:
+            h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+        return shard_batch(h)
 
 
 # --------------------------------------------------------------------------- #

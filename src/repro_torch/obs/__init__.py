@@ -19,7 +19,8 @@ code routes human-facing progress lines through :func:`diag`, whose sink
 is swappable (default: stdout, flushed).
 
 This package imports only numpy and the stdlib, so the engine can import
-it without cycles.
+it without cycles.  The model path's ``torch.profiler`` spans live apart,
+in :mod:`repro_torch.obs.spans`, which the model modules import directly.
 """
 from __future__ import annotations
 
