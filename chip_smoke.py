@@ -89,7 +89,10 @@ Twelve phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
                        then 4 requests of 512 tokens (llava: after 576 patch
                        embeddings; whisper: beside 1500 encoder frames)
                        served in the config's bf16, kernel launches a
-                       prefill asserted per model
+                       prefill asserted per model; rmsnorm launches a
+                       prefill reported (a kernel lowering sends every
+                       norm to it; two a layer and the final one asserted
+                       for qwen2 and llava, 65; none under impl="xla")
   7. train             the training path (impl="xla": no kernel launches,
                        asserted): qwen2-0.5b at full width and depth in bf16
                        (S = 512, global batch 8, remat "dots"), 24 steps with
@@ -136,7 +139,10 @@ Twelve phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
 
 Phase 3 also holds flash_attention, ssd_scan and rmsnorm against their plain
 versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
-d_state 64; flash_attention at llava's prefill, head dim 128) and times them beside PyTorch's own call for the same function
+d_state 64; flash_attention at llava's prefill, head dim 128; rmsnorm with
+a bf16 weight read bit for bit as its float32 widening) and times them beside
+PyTorch's own call for the same function (rmsnorm also at llava's norms,
+[1368 | 8192 | 32768, 4096] bf16 with the bf16 weight)
 (flash_attention in bf16, its tensor-core design, and in float32, its
 CUDA-core design; ssd_scan in bf16, its tensor-core design, held
 both to the sequential recurrence and to ssd_scan_chunked_ref with the
@@ -160,7 +166,8 @@ width, and at full depth but where a model does not fit one card (phase
 serve's SERVE says which depths are cut).  ``--only model_kernels`` builds
 the kernels and runs the build report and phase model_kernels alone: run it
 from ``git archive`` copies of two trees in one session (A, B, B, A) to
-compare their model kernels on one card.
+compare their model kernels on one card.  ``--only serve`` builds the
+kernels and runs phase serve alone.
 """
 from __future__ import annotations
 
@@ -200,7 +207,7 @@ from repro_torch.kernels.alloc_active_set import alloc_active_set_geometry
 from repro_torch.kernels.event_step import event_step_geometry
 from repro_torch.kernels.ssd_scan import FOLD_CHUNKS
 from repro_torch.models.api import build_model
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import rms_norm, tree_leaves, tree_map
 from repro_torch.core import HAFPlacement, datagen, make_agent
 from repro_torch.core import critic as critic_mod
 from repro_torch.eval import sweep
@@ -895,13 +902,18 @@ FLASH_LLAVA = (SERVE_B, 576 + SERVE_S, 32, 8, 128)
 SSD_ZAMBA2 = (SERVE_B, SERVE_S, 80, 1, 64, 64, 256)
 # tests/test_kernels.py's shapes, qwen2's width (the timed case, 2048 rows
 # of 896), a tail that is not a whole vector and rows that start unaligned
-# (999), and the longest row the kernel takes (65536, the strided path)
+# (999), the longest row the kernel takes (65536, the strided path), then
+# llava's norms (d 4096) at a longdoc prompt of 8192 positions and of 32768
 RMS_TIMED = ((2048, 896), torch.bfloat16)
 RMS_SHAPES = [((4, 64, 256), torch.float32), ((4, 64, 256), torch.bfloat16),
               ((128, 512), torch.float32), ((128, 512), torch.bfloat16),
               ((3, 5, 7, 64), torch.float32), ((3, 5, 7, 64), torch.bfloat16),
               RMS_TIMED, ((2048, 896), torch.float32),
-              ((5, 999), torch.bfloat16), ((2, 65536), torch.float32)]
+              ((5, 999), torch.bfloat16), ((2, 65536), torch.float32),
+              ((8192, 4096), torch.bfloat16), ((32768, 4096), torch.bfloat16)]
+# the model path's norm at llava's width, timed with its bf16 weight: chat's
+# shortest prompt (576 patches + 792 tokens) and two longdoc prompts
+RMS_LLAVA_ROWS = (1368, 8192, 32768)
 # the reference's tolerances (tests/test_kernels.py)
 MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = 1e-4
@@ -989,8 +1001,8 @@ def ssd_bound(b, s, h, g, p, n, chunk, elem):
     return bytes_, flops * b * h, BF16_TC_FLOPS if elem == 2 else F32_FLOPS
 
 
-def rms_bound(rows, d, elem):
-    return rows * d * 2 * elem + d * 4, 4 * rows * d, F32_FLOPS
+def rms_bound(rows, d, elem, w_elem=4):
+    return rows * d * 2 * elem + d * w_elem, 4 * rows * d, F32_FLOPS
 
 
 def bound_of(bytes_, flops, peak):
@@ -1173,7 +1185,8 @@ def phase_model_kernels():
         "library": None,
         "zamba2": ssd_record(SSD_ZAMBA2, errs)}
 
-    # rmsnorm: f32 at 1e-5, bf16 at 2e-2, float32 weight
+    # rmsnorm: f32 at 1e-5, bf16 at 2e-2, float32 weight; a bf16 weight
+    # read as it is stored gives the bits of its float32 widening
     errs, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
     for shape, dtype in RMS_SHAPES:
         rng = np.random.default_rng(n)
@@ -1184,6 +1197,10 @@ def phase_model_kernels():
         tol = MODEL_TOL[dtype]
         errs[dtype] = max(errs[dtype], assert_close(
             f"rmsnorm{shape} {dtype}", got, want, tol, tol))
+        w_bf = w.to(torch.bfloat16)
+        if not torch.equal(ops.rmsnorm(x, w_bf), ops.rmsnorm(x, w_bf.float())):
+            raise AssertionError(f"rmsnorm{shape} {dtype}: the bf16 weight's "
+                                 "read differs from its float32 widening")
         n += 1
     rng = np.random.default_rng(0)
     (rows, d), dtype = RMS_TIMED
@@ -1200,11 +1217,36 @@ def phase_model_kernels():
         "library": "F.rms_norm with the weight cast to bf16 beforehand",
         "library_ms": median_ms(lambda: torch.nn.functional.rms_norm(
             x, (d,), w_x, 1e-5)),
-        **bound_of(*rms_bound(rows, d, 2))}
+        **bound_of(*rms_bound(rows, d, 2)),
+        "llava": [rms_llava_record(rows) for rows in RMS_LLAVA_ROWS]}
     emit("model_kernels", **recs,
          timing="CUDA events, 5 warm-up + 50 calls (plain: 20, ssd "
                 "plain: 3), median of 5 repeats, inputs L2-warm")
     return recs
+
+
+def rms_llava_record(rows, d=4096):
+    """The kernel as llava's norms launch it: ``[rows, 4096]`` bf16 with
+    the bf16 weight, beside the bytes it must move and the eager composite
+    the models ran before (``ref.rmsnorm_ref``); the host µs of one norm on
+    the model path (``common.rms_norm``, the kernel) and of the composite."""
+    rng = np.random.default_rng(rows)
+    x = normal(rng, (rows, d), torch.bfloat16)
+    w = normal(rng, (d,), torch.bfloat16)
+    ms = median_ms(lambda: ops.rmsnorm(x, w))
+    device_us, _, _ = profiled(lambda: ops.rmsnorm(x, w), ("rmsnorm",))
+    rec = {"shape": [rows, d], "dtype": "bfloat16", "weight": "bfloat16",
+           "ms": ms, "profiler_device_us": device_us["rmsnorm"],
+           "plain_ms": median_ms(lambda: ref.rmsnorm_ref(x, w), iters=20),
+           "library_ms": median_ms(lambda: torch.nn.functional.rms_norm(
+               x, (d,), w, 1e-5)),
+           "model_path_host_us": host_us(
+               lambda: rms_norm(x, w, impl="flash"))[0],
+           "composite_host_us": host_us(lambda: ref.rmsnorm_ref(x, w))[0],
+           **bound_of(*rms_bound(rows, d, 2, 2))}
+    rec["bound_share"] = rec["bound_ms"] / ms
+    rec["device_bound_share"] = rec["bound_ms"] * 1e3 / device_us["rmsnorm"]
+    return rec
 
 
 # --------------------------------------------------------------------------- #
@@ -2154,15 +2196,15 @@ def greedy(model, params, batch, steps: int, vocab: int):
 def check_parity(sv: Served, cfg, seed):
     """Float32, same parameters: the kernel lowering's last-position
     prefill logits and every cache tensor against impl="xla" (at S = 512
-    and the ragged 300; None where the lowering launches no kernel, as it is
-    then the composite path itself), and prefill + decode == forward for the
-    kernel lowering; before the weights are tempered, how far float32
-    rounding alone moves the untempered model (impl="xla" against
-    float64)."""
+    and the ragged 300; None under impl="xla", the composite path itself;
+    every kernel lowering launches the rmsnorm kernel, MLA's too), and
+    prefill + decode == forward for the kernel lowering; before the weights
+    are tempered, how far float32 rounding alone moves the untempered model
+    (impl="xla" against float64)."""
     cfg32 = dataclasses.replace(cut(cfg, sv.parity_layers),
                                 param_dtype="float32",
                                 compute_dtype="float32")
-    kernel = kernel_launches(cfg32, sv.impl, sv.kernel) > 0
+    kernel = sv.impl != "xla"
     mk = build_model(cfg32, impl=sv.impl)
     mx = build_model(cfg32, impl="xla") if kernel else mk
     params = mk.init(seeded(seed))
@@ -2277,7 +2319,7 @@ def serve_one(sv: Served):
     scfg = cut(cfg, sv.serve_layers)
     want = kernel_launches(scfg, sv.impl, sv.kernel)
     torch.cuda.reset_peak_memory_stats()
-    same_path = want == 0               # the composite path, no kernel
+    same_path = sv.impl == "xla"        # the composite path, no kernel
     mk = build_model(scfg, impl=sv.impl)
     mx = mk if same_path else build_model(scfg, impl="xla")
     params = mk.init(seeded(SEED))
@@ -2296,8 +2338,13 @@ def serve_one(sv: Served):
         raise AssertionError(
             f"{sv.name} impl={sv.impl}: {got} {sv.kernel} launches in one "
             f"prefill and {sv.steps} decode steps, expected {want}")
-    if any(c for k, c in counts.items() if k != sv.kernel):
-        raise AssertionError(f"{sv.name}: other kernels launched: {counts}")
+    # a kernel lowering sends every norm of a prefill or decode step to the
+    # rmsnorm kernel; impl="xla" launches nothing
+    if any(c for k, c in counts.items() if k not in (sv.kernel, "rmsnorm")) \
+            or bool(counts["rmsnorm"]) == same_path:
+        raise AssertionError(f"{sv.name} impl={sv.impl}: other kernels "
+                             f"launched, or rmsnorm where it should not be "
+                             f"or not where it should: {counts}")
     if not finite:
         raise AssertionError(f"{sv.name}: non-finite logits while serving")
     if not bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()):
@@ -2339,9 +2386,14 @@ def serve_one(sv: Served):
     ops.reset_launch_counts()
     rag = batch_for(scfg, SEED + 1, SERVE_B, RAGGED_S)
     lk, _ = mk.prefill(params, rag)
+    norms = ops.launch_counts()["rmsnorm"]
     lx = lk if same_path else mx.prefill(params, rag)[0]
     if (ops.launch_counts()[sv.kernel] if sv.kernel else 0) != want:
         raise AssertionError(f"{sv.name}: ragged prefill missed the kernel")
+    if scfg.family in ("dense", "vlm") and not same_path \
+            and norms != 2 * scfg.num_layers + 1:
+        raise AssertionError(f"{sv.name}: {norms} rmsnorm launches in a "
+                             f"prefill, expected two a layer and the final")
     rec = {
         "model": sv.name, "impl": sv.impl, "kernel": sv.kernel,
         "num_layers": scfg.num_layers, "config_layers": cfg.num_layers,
@@ -2349,6 +2401,7 @@ def serve_one(sv: Served):
         "param_count": mk.param_count(), "param_bytes": param_bytes,
         "batch": SERVE_B, "prompt": SERVE_S, "prefix": prefix(scfg),
         "decode_steps": sv.steps, "launches": got, "f32_parity": parity,
+        "rmsnorm_launches_per_prefill": norms,
         "prefill_ms": t_pre * 1e3, "prefill_ms_median5": pre_med,
         "prefill_profile": profile_rec,
         "prefill_tokens_per_s": SERVE_B * SERVE_S / t_pre,
@@ -2378,9 +2431,11 @@ def phase_serve():
     recs = [serve_one(sv) for sv in SERVE]
     by_kernel = {}
     for rec in recs:
+        path = f"{rec['model']}/{rec['impl']}"
         if rec["kernel"]:
-            by_kernel.setdefault(rec["kernel"], {})[
-                f"{rec['model']}/{rec['impl']}"] = rec["launches"]
+            by_kernel.setdefault(rec["kernel"], {})[path] = rec["launches"]
+        by_kernel.setdefault("rmsnorm", {})[path] = \
+            rec["rmsnorm_launches_per_prefill"]
     emit("serve_summary", seconds=time.perf_counter() - t0,
          launches_by_path=by_kernel)
     return by_kernel
@@ -3256,12 +3311,12 @@ def main() -> None:
     p.add_argument("--critic-epochs", type=int, default=2000,
                    help="training epochs of the critic (the reference's "
                         "2000)")
-    p.add_argument("--only", choices=("model_kernels", "train", "mesh",
-                                      "dryrun"),
+    p.add_argument("--only", choices=("model_kernels", "serve", "train",
+                                      "mesh", "dryrun"),
                    help="a rehearsal: phase env, then only this phase (no "
                         "kernels line, no ok line; kernels are built for "
-                        "model_kernels, with the build report, and mesh "
-                        "only)")
+                        "model_kernels, with the build report, serve and "
+                        "mesh only)")
     args = p.parse_args()
 
     # float32 products in full float32 everywhere (the defaults for matmul,
@@ -3274,13 +3329,13 @@ def main() -> None:
          device=kind, capability=list(torch.cuda.get_device_capability(0)),
          nvidia_smi=smi)
     if args.only:
-        if args.only in ("model_kernels", "mesh"):
+        if args.only in ("model_kernels", "serve", "mesh"):
             libs = _build.build_all()
             _build.load()
         if args.only == "model_kernels":
             phase_build(libs)
-        {"model_kernels": phase_model_kernels, "train": phase_train,
-         "mesh": phase_mesh,
+        {"model_kernels": phase_model_kernels, "serve": phase_serve,
+         "train": phase_train, "mesh": phase_mesh,
          "dryrun": lambda: (sweep_alone(), phase_dryrun())}[args.only]()
         print(smi, flush=True)
         return
@@ -3378,10 +3433,15 @@ def main() -> None:
              cuda_launches_per_call=mk["ssd_scan"][
                  "cuda_launches_per_call"],
              at_zamba2=mk["ssd_scan"]["zamba2"]),
-        row("rmsnorm", mk["rmsnorm"], 0, "src/repro/kernels/rmsnorm.py:20",
-            mk["rmsnorm"]["tolerance"],
-            "none: no model of either package calls it (library entry "
-            "point ops.rmsnorm), so 0 launches on a model path"),
+        dict(row("rmsnorm", mk["rmsnorm"],
+                 sum(served["rmsnorm"].values()),
+                 "src/repro/kernels/rmsnorm.py:20",
+                 mk["rmsnorm"]["tolerance"],
+                 "models.common.rms_norm: every norm of a kernel lowering "
+                 "(impl 'flash' / 'pallas'), one launch each (the ragged "
+                 "prefill of each served model counted)"),
+             launches_by_path=served["rmsnorm"],
+             at_llava=mk["rmsnorm"]["llava"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,9 @@
 // share of the row as 16-byte vectors (8 bf16 or 4 f32) and keeps them in
 // registers; the warp reduces the sum of squares with shuffles only (no
 // shared memory, no __syncthreads); the lane then scales the registers it
-// holds by inv and by the float32 weight (float4 loads, L1/L2-resident
-// across rows, issued with x's loads where they fit in 64 registers so that
-// their latency hides behind the reduction) and writes 16-byte vectors.
+// holds by inv and by the weight (16-byte loads, L1/L2-resident across
+// rows, issued with x's loads where they fit in 64 registers so that their
+// latency hides behind the reduction) and writes 16-byte vectors.
 // Any d: x, y and w start 16-byte aligned (the launcher's contract), so a
 // row whose start is not aligned
 // (d * sizeof(x) not a multiple of 16) has a scalar head up to the next
@@ -20,8 +20,11 @@
 // vector; where that head leaves w's share unaligned, w is read as scalars.
 // Rows too long for a warp's registers (over 16 vectors a lane: d > 4096 in
 // bf16, > 2048 in f32) take a block-per-row kernel that strides over the
-// row and re-reads it — a dispatch on d.  x may be float32 or bfloat16 and
-// is widened to float32 (the reference's astype(float32)); w is float32.
+// row and re-reads it — a dispatch on d.  x and w may each be float32 or
+// bfloat16 and are widened to float32 (the reference's astype(float32)), so
+// a model's bf16 weight is read as it is stored, with no cast launched
+// before the kernel; widening is exact, so both weight types give the same
+// bits.
 // 1/sqrt is IEEE-rounded rather than the approximate rsqrtf so float32 rows
 // match the plain version to ~1 ulp.
 #include "common.cuh"
@@ -69,28 +72,33 @@ template <> struct Vec<__nv_bfloat16> {
     }
 };
 
-// w[c .. c + n) as floats: float4 loads where w + c is 16-byte aligned
-template <int N>
-__device__ __forceinline__ void load_w(const float* __restrict__ w, int c,
+// w[c .. c + N) as floats: 16-byte loads (one 8-byte load for four bf16
+// weights) where w + c is aligned to them, else scalars
+template <typename W, int N>
+__device__ __forceinline__ void load_w(const W* __restrict__ w, int c,
                                        bool vec, float* wv) {
-    if (vec) {
+    constexpr int PER = Vec<W>::N;           // weights a 16-byte load
+    if (!vec) {
 #pragma unroll
-        for (int q = 0; q < N / 4; ++q) {
-            const float4 t = __ldg(reinterpret_cast<const float4*>(w + c) + q);
-            wv[4 * q] = t.x;
-            wv[4 * q + 1] = t.y;
-            wv[4 * q + 2] = t.z;
-            wv[4 * q + 3] = t.w;
-        }
-    } else {
+        for (int e = 0; e < N; ++e) wv[e] = to_f32(w[c + e]);
+    } else if constexpr (N >= PER) {
 #pragma unroll
-        for (int e = 0; e < N; ++e) wv[e] = __ldg(w + c + e);
+        for (int q = 0; q < N / PER; ++q)
+            Vec<W>::unpack(__ldg(reinterpret_cast<const uint4*>(w + c) + q),
+                           wv + q * PER);
+    } else {                                 // four bf16 weights of f32 x
+        static_assert(N == 4 && PER == 8, "four bf16 weights");
+        const uint2 t = __ldg(reinterpret_cast<const uint2*>(w + c));
+        wv[0] = __uint_as_float(t.x << 16);
+        wv[1] = __uint_as_float(t.x & 0xffff0000u);
+        wv[2] = __uint_as_float(t.y << 16);
+        wv[3] = __uint_as_float(t.y & 0xffff0000u);
     }
 }
 
-template <typename T, int NV>
+template <typename T, typename W, int NV>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ w,
+rmsnorm_rows(const T* __restrict__ x, const W* __restrict__ w,
              T* __restrict__ y, int rows, int d, float eps) {
     constexpr int VEC = Vec<T>::N;
     const int lane = threadIdx.x & 31;
@@ -107,7 +115,9 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ w,
     const int tail_at = head + nvec * VEC;
     const int tail = d - tail_at;
 
-    const bool w_vec = head % 4 == 0;        // w + head is 16-byte aligned
+    // w + head is aligned to w's loads of one x vector's share
+    constexpr int W_LOAD = VEC * sizeof(W) < 16 ? VEC * sizeof(W) : 16;
+    const bool w_vec = head * sizeof(W) % W_LOAD == 0;
     // w's share kept in registers from the start where it fits in 64
     constexpr bool KEEP_W = NV * VEC <= 64;
     float wk[KEEP_W ? NV * VEC : 1];
@@ -123,7 +133,7 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ w,
         if (v < nvec) {
             buf[i] = *reinterpret_cast<const uint4*>(xr + head + v * VEC);
             if constexpr (KEEP_W)
-                load_w<VEC>(w, head + v * VEC, w_vec, wk + i * VEC);
+                load_w<W, VEC>(w, head + v * VEC, w_vec, wk + i * VEC);
             float f[VEC];
             Vec<T>::unpack(buf[i], f);
 #pragma unroll
@@ -135,9 +145,10 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ w,
     for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(FULL_WARP, ss, o);
     const float inv = 1.0f / sqrtf(ss / d + eps);
 
-    if (lane < head) yr[lane] = from_f32<T>(hv * inv * w[lane]);
+    if (lane < head) yr[lane] = from_f32<T>(hv * inv * to_f32(w[lane]));
     if (lane < tail)
-        yr[tail_at + lane] = from_f32<T>(tv * inv * w[tail_at + lane]);
+        yr[tail_at + lane] =
+            from_f32<T>(tv * inv * to_f32(w[tail_at + lane]));
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
         const int v = lane + 32 * i;
@@ -149,7 +160,7 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
                 for (int e = 0; e < VEC; ++e) wv[e] = wk[i * VEC + e];
             } else {
-                load_w<VEC>(w, c, w_vec, wv);
+                load_w<W, VEC>(w, c, w_vec, wv);
             }
 #pragma unroll
             for (int e = 0; e < VEC; ++e) f[e] = f[e] * inv * wv[e];
@@ -158,9 +169,9 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ w,
     }
 }
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(LONG_THREADS)
-rmsnorm_long(const T* __restrict__ x, const float* __restrict__ w,
+rmsnorm_long(const T* __restrict__ x, const W* __restrict__ w,
              T* __restrict__ y, int d, float eps) {
     __shared__ float s_part[LONG_THREADS / 32];
     const size_t off = static_cast<size_t>(blockIdx.x) * d;
@@ -177,43 +188,58 @@ rmsnorm_long(const T* __restrict__ x, const float* __restrict__ w,
     for (int k = 0; k < LONG_THREADS / 32; ++k) total += s_part[k];
     const float inv = 1.0f / sqrtf(total / d + eps);
     for (int i = threadIdx.x; i < d; i += LONG_THREADS)
-        y[off + i] = from_f32<T>(to_f32(x[off + i]) * inv * w[i]);
+        y[off + i] =
+            from_f32<T>(to_f32(x[off + i]) * inv * to_f32(w[i]));
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t launch(const void* x, const void* w, void* y, int rows, int d,
                    float eps, cudaStream_t st) {
     const T* xp = static_cast<const T*>(x);
-    const float* wp = static_cast<const float*>(w);
+    const W* wp = static_cast<const W*>(w);
     T* yp = static_cast<T*>(y);
     const int per_lane = (d + 32 * Vec<T>::N - 1) / (32 * Vec<T>::N);
     const int blocks = (rows + ROW_WARPS - 1) / ROW_WARPS;
     constexpr int threads = ROW_WARPS * 32;
     if (per_lane <= 1)
-        rmsnorm_rows<T, 1><<<blocks, threads, 0, st>>>(xp, wp, yp, rows, d, eps);
+        rmsnorm_rows<T, W, 1><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
+                                                          d, eps);
     else if (per_lane <= 2)
-        rmsnorm_rows<T, 2><<<blocks, threads, 0, st>>>(xp, wp, yp, rows, d, eps);
+        rmsnorm_rows<T, W, 2><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
+                                                          d, eps);
     else if (per_lane <= 4)
-        rmsnorm_rows<T, 4><<<blocks, threads, 0, st>>>(xp, wp, yp, rows, d, eps);
+        rmsnorm_rows<T, W, 4><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
+                                                          d, eps);
     else if (per_lane <= 8)
-        rmsnorm_rows<T, 8><<<blocks, threads, 0, st>>>(xp, wp, yp, rows, d, eps);
+        rmsnorm_rows<T, W, 8><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
+                                                          d, eps);
     else if (per_lane <= MAX_NV)
-        rmsnorm_rows<T, MAX_NV><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
-                                                            d, eps);
+        rmsnorm_rows<T, W, MAX_NV><<<blocks, threads, 0, st>>>(xp, wp, yp,
+                                                               rows, d, eps);
     else
-        rmsnorm_long<T><<<rows, LONG_THREADS, 0, st>>>(xp, wp, yp, d, eps);
+        rmsnorm_long<T, W><<<rows, LONG_THREADS, 0, st>>>(xp, wp, yp, d, eps);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_x(const void* x, const void* w, void* y, int rows, int d,
+                     float eps, int w_dtype, cudaStream_t st) {
+    if (w_dtype == DTYPE_F32)
+        return launch<T, float>(x, w, y, rows, d, eps, st);
+    if (w_dtype == DTYPE_BF16)
+        return launch<T, __nv_bfloat16>(x, w, y, rows, d, eps, st);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x, y: [rows, d] contiguous, dtype `x_dtype` (DTYPE_F32 or DTYPE_BF16);
-// w: [d] contiguous float32; x, w and y 16-byte aligned.  Launches on
-// `stream`, never synchronises; returns the launch's cudaError_t (0 on
-// success).
+// x, y: [rows, d] contiguous, dtype `x_dtype`; w: [d] contiguous, dtype
+// `w_dtype` (each DTYPE_F32 or DTYPE_BF16); x, w and y 16-byte aligned.
+// Launches on `stream`, never synchronises; returns the launch's
+// cudaError_t (0 on success).
 REPRO_EXPORT int rmsnorm_launch(const void* x, const void* w, void* y,
                                 int rows, int d, float eps, int x_dtype,
-                                void* stream) {
+                                int w_dtype, void* stream) {
     if (rows <= 0 || d <= 0 || d > MAX_D)
         return static_cast<int>(cudaErrorInvalidValue);
     if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)
@@ -222,9 +248,9 @@ REPRO_EXPORT int rmsnorm_launch(const void* x, const void* w, void* y,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaErrorInvalidValue;
     if (x_dtype == DTYPE_F32)
-        err = launch<float>(x, w, y, rows, d, eps, st);
+        err = launch_x<float>(x, w, y, rows, d, eps, w_dtype, st);
     else if (x_dtype == DTYPE_BF16)
-        err = launch<__nv_bfloat16>(x, w, y, rows, d, eps, st);
+        err = launch_x<__nv_bfloat16>(x, w, y, rows, d, eps, w_dtype, st);
     return static_cast<int>(err);
 }
 

@@ -9,11 +9,12 @@ kernels mask the ragged edge themselves, so nothing is padded here.
 No kernel has a backward pass (neither has the reference's: it cannot
 differentiate through its Pallas kernels).  A kernel writes into a fresh
 tensor outside autograd, so its output would silently be a constant to a
-backward pass; ``flash_attention`` and ``ssd_scan``, which the models reach,
-therefore raise where grad mode is on and an input requires grad, on every
-device, so that the CPU's differentiable plain path and the card agree.
-Training takes ``impl="xla"``, as in the reference.  On a device mesh
-``flash_attention`` takes ``DTensor``s and launches on each rank's shard.
+backward pass; ``flash_attention``, ``ssd_scan`` and ``rmsnorm``, which the
+models reach, therefore raise where grad mode is on and an input requires
+grad, on every device, so that the CPU's differentiable plain path and the
+card agree.  Training takes ``impl="xla"``, as in the reference.  On a
+device mesh ``flash_attention`` and ``rmsnorm`` take ``DTensor``s and launch
+on each rank's shard.
 """
 from __future__ import annotations
 
@@ -275,7 +276,16 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x [..., d]; weight [d] -> x's shape and dtype (float32 statistics).
     ``x`` and ``weight`` may each be float32 or bfloat16; the kernel reads
-    the weight as float32."""
+    each in its own dtype and widens it to float32 (exact), so no cast is
+    launched before it.  Raises under autograd (see the module docstring).
+
+    A ``DTensor`` ``x`` on a device mesh: its rows are made whole (a shard
+    of the last dim, or a partial sum, gathered; batch and sequence shards
+    kept), the weight replicated, and each rank launches the kernel on its
+    rows; the result is placed as those rows are."""
+    if isinstance(x, DTensor):
+        return _rmsnorm_on_shards(x, weight, eps)
+    _refuse_autograd("rmsnorm", x, weight)
     if x.dim() < 1 or x.numel() == 0:
         raise ValueError(f"rmsnorm: x must be non-empty [..., d], got "
                          f"{tuple(x.shape)}")
@@ -287,7 +297,23 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     _check_model_dtype("rmsnorm weight", weight.dtype)
     if x.device.type == "cpu":
         return kref.rmsnorm_ref(x, weight, eps)
-    out = rmsnorm_cuda(x.contiguous().reshape(-1, d),
-                       weight.float().contiguous(), eps)
+    out = rmsnorm_cuda(x.contiguous().reshape(-1, d), weight.contiguous(),
+                       eps)
     _launches["rmsnorm"] += 1
     return out.reshape(x.shape)
+
+
+def _rmsnorm_on_shards(x: DTensor, weight: torch.Tensor, eps: float
+                       ) -> DTensor:
+    """:func:`rmsnorm` of each rank's whole rows (see there)."""
+    _refuse_autograd("rmsnorm", x, weight)
+    mesh, last = x.device_mesh, x.dim() - 1
+    rows = [Replicate() if p.is_partial()
+            or isinstance(p, Shard) and p.dim % x.dim() == last else p
+            for p in x.placements]
+    if isinstance(weight, DTensor):
+        weight = weight.redistribute(
+            weight.device_mesh, [Replicate()] * weight.device_mesh.ndim
+        ).to_local()
+    out = rmsnorm(x.redistribute(mesh, rows).to_local(), weight, eps)
+    return DTensor.from_local(out, mesh, rows, run_check=False)

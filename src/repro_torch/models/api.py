@@ -20,8 +20,10 @@ decode_step`` for the families ``dense``, ``ssm``, ``hybrid``, ``moe``
 reference's strings: ``"xla"`` is the eager torch composite path,
 ``"flash"`` sends causal self-attention to the hand-written
 ``flash_attention`` kernel and ``"pallas"`` sends the SSD scan to the
-hand-written ``ssd_scan`` kernel; MLA takes the composite path under every
-``impl``, as in the reference.  ``loss`` is differentiable only under
+hand-written ``ssd_scan`` kernel; both kernel lowerings send every RMSNorm
+(of prefill, forward and decode) to the hand-written ``rmsnorm`` kernel.
+MLA attention takes the composite path under every ``impl``, as in the
+reference.  ``loss`` is differentiable only under
 ``impl="xla"``: the kernels have no backward pass, so their wrappers refuse
 tensors that require grad (the reference cannot differentiate through its
 Pallas kernels either and trains on ``"xla"``).  ``remat`` is the activation
@@ -80,8 +82,8 @@ def _ssm_lm_defs(cfg: ArchConfig) -> Dict[str, Tree]:
     return defs
 
 
-def _ssm_lm_logits(params, h, cfg):
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+def _ssm_lm_logits(params, h, cfg, impl):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps, impl)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return mesh_einsum("bsd,dv->bsv", h, w)
 
@@ -95,7 +97,7 @@ def _ssm_lm_forward(params, batch, cfg, impl="xla"):
     h = _ssm_embed(params, batch["tokens"], cfg)
     for lp in params["layers"]:
         h = h + ssm.ssm_forward(lp, h, cfg, impl=impl)
-    return _ssm_lm_logits(params, h, cfg)
+    return _ssm_lm_logits(params, h, cfg, impl)
 
 
 def _ssm_lm_loss(params, batch, cfg, impl="xla", remat="dots"):
@@ -107,7 +109,7 @@ def _ssm_lm_loss(params, batch, cfg, impl="xla", remat="dots"):
     h = _ssm_embed(params, batch["tokens"], cfg)
     for lp in params["layers"]:
         h = layer(h, lp)
-    logits = _ssm_lm_logits(params, h, cfg)
+    logits = _ssm_lm_logits(params, h, cfg, impl)
     return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
 
 
@@ -119,15 +121,16 @@ def _ssm_lm_prefill(params, batch, cfg, impl="xla"):
                                      impl=impl)
         return carry + out, state
     h, states = scan_layers(body, h, params["layers"])
-    return _ssm_lm_logits(params, h[:, -1:, :], cfg), {"layers": states}
+    return _ssm_lm_logits(params, h[:, -1:, :], cfg, impl), {
+        "layers": states}
 
 
-def _ssm_lm_decode(params, cache, batch, cfg):
+def _ssm_lm_decode(params, cache, batch, cfg, impl="xla"):
     h = _ssm_embed(params, batch["tokens"], cfg)
     for lp, lc in zip(params["layers"], split_layers(cache["layers"])):
-        out, _ = ssm.ssm_decode(lp, h, lc, cfg)
+        out, _ = ssm.ssm_decode(lp, h, lc, cfg, impl=impl)
         h = h + out
-    return _ssm_lm_logits(params, h, cfg), cache
+    return _ssm_lm_logits(params, h, cfg, impl), cache
 
 
 def _ssm_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
@@ -281,12 +284,15 @@ class Model:
                     ) -> Tuple[torch.Tensor, Tree]:
         f = self.cfg.family
         if f == "ssm":
-            return _ssm_lm_decode(params, cache, batch, self.cfg)
+            return _ssm_lm_decode(params, cache, batch, self.cfg, self.impl)
         if f == "hybrid":
-            return hybrid.hybrid_decode_step(params, cache, batch, self.cfg)
+            return hybrid.hybrid_decode_step(params, cache, batch, self.cfg,
+                                             impl=self.impl)
         if f == "audio":
-            return encdec.encdec_decode_step(params, cache, batch, self.cfg)
-        return transformer.lm_decode_step(params, cache, batch, self.cfg)
+            return encdec.encdec_decode_step(params, cache, batch, self.cfg,
+                                             impl=self.impl)
+        return transformer.lm_decode_step(params, cache, batch, self.cfg,
+                                          impl=self.impl)
 
     # ---- caches ---- #
     def cache_defs(self, batch: int, seq: int) -> Tree:

@@ -11,7 +11,8 @@ Twin of the reference's ``models/attention.py``.  Lowerings:
     the encoder's fixed keys and values;
   * MLA — full sequence by expanding the latent keys and values per head
     (always the einsum path, whatever ``impl``: the reference never sends
-    MLA to its kernel); decode by matrix absorption over the compressed
+    MLA to its kernel; its q / kv norms follow ``impl``, as every norm does,
+    ``common.rms_norm``); decode by matrix absorption over the compressed
     cache ``{"c_kv": [B,S,r], "k_rope": [B,S,rope]}``, never expanded.
 
 Decode writes the new cache rows into the cache tensors in place and
@@ -242,33 +243,33 @@ def mla_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
     return defs
 
 
-def _mla_q(p, x, cfg):
+def _mla_q(p, x, cfg, impl):
     """(q_nope, q_rope), each ``[B,S,H,*]``."""
     c = cfg.mla
     if c.q_lora_rank:
         q = mesh_einsum("bsd,dr->bsr", x, p["wq_a"])
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, impl)
         q = mesh_einsum("bsr,rhe->bshe", q, p["wq_b"])
     else:
         q = mesh_einsum("bsd,dhe->bshe", x, p["wq"])
     return torch.split(q, [c.qk_nope_head_dim, c.qk_rope_head_dim], dim=-1)
 
 
-def _mla_latent(p, x, positions, cfg):
+def _mla_latent(p, x, positions, cfg, impl):
     """The compressed cache rows of ``x``: normed ``c_kv [B,S,r]`` and the
     roped ``k_rope [B,S,rope]``."""
     c = cfg.mla
     kv = mesh_einsum("bsd,dr->bsr", x, p["wkv_a"])
     c_kv, k_rope = torch.split(kv, [c.kv_lora_rank, c.qk_rope_head_dim],
                                dim=-1)
-    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps, impl)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
     return c_kv, k_rope[:, :, 0, :]
 
 
 def mla_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-                positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict]:
+                positions: Optional[torch.Tensor] = None,
+                impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
     """Full-sequence MLA (prefill / forward) by expanding the latent keys
     and values per head; q / k head dim ``nope + rope``, v head dim
     ``v_head_dim``.  Returns (output, the compressed cache rows)."""
@@ -277,9 +278,9 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     H = cfg.num_heads
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, impl)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = _mla_latent(p, x, positions, cfg)
+    c_kv, k_rope = _mla_latent(p, x, positions, cfg, impl)
 
     kv_up = mesh_einsum("bsr,rhe->bshe", c_kv, p["wkv_b"])
     k_nope, v = torch.split(kv_up, [c.qk_nope_head_dim, c.v_head_dim],
@@ -295,7 +296,8 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
-               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+               cfg: ArchConfig, *, impl: str = "xla"
+               ) -> Tuple[torch.Tensor, Dict]:
     """One-token MLA decode by matrix absorption: ``wkv_b``'s key part is
     folded into the query and its value part applied after the softmax, so
     attention runs over the compressed cache ``{"c_kv": [B,S,r], "k_rope":
@@ -303,10 +305,10 @@ def mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     head."""
     c = cfg.mla
     B = x.shape[0]
-    q_nope, q_rope = _mla_q(p, x, cfg)                     # [B,1,H,*]
+    q_nope, q_rope = _mla_q(p, x, cfg, impl)               # [B,1,H,*]
     posb = torch.full((B, 1), pos, device=x.device)
     q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
-    c_kv_new, k_rope_new = _mla_latent(p, x, posb, cfg)
+    c_kv_new, k_rope_new = _mla_latent(p, x, posb, cfg, impl)
     cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
     cache["k_rope"][:, pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]

@@ -41,6 +41,8 @@ from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.obs.spans import span
 
 Tree = Any
@@ -235,13 +237,18 @@ def checkpointed(fn: Callable, remat: str) -> Callable:
 # --------------------------------------------------------------------------- #
 # layers
 # --------------------------------------------------------------------------- #
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
+             impl: str = "xla") -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * weight`` over the last axis, with
+    float32 statistics and the output in ``x``'s dtype.  ``impl="xla"`` is
+    the eager composite ``kref.rmsnorm_ref`` (differentiable); a kernel
+    lowering (``"flash"``, ``"pallas"``) is the hand-written ``rmsnorm``
+    kernel through ``ops.rmsnorm``: one launch a norm on the card, a
+    ``DTensor``'s on each rank's rows, and a refusal under autograd."""
     with span("repro.rms_norm"):
-        x32 = x.float()
-        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + eps)
-        return (y * weight.float()).to(x.dtype)
+        if impl == "xla":
+            return kref.rmsnorm_ref(x, weight, eps)
+        return kops.rmsnorm(x, weight, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -68,8 +68,9 @@ def encdec_defs(cfg: ArchConfig) -> Dict[str, Tree]:
     }
 
 
-def _mlp(lp: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+def _mlp(lp: Tree, h: torch.Tensor, cfg: ArchConfig,
+         impl: str) -> torch.Tensor:
+    x = rms_norm(h, lp["ln2"], cfg.norm_eps, impl)
     return shard_batch(h + swiglu(x, lp["mlp"]["gate"], lp["mlp"]["up"],
                                   lp["mlp"]["down"]))
 
@@ -80,23 +81,23 @@ def _encode(params: Tree, frames: torch.Tensor, cfg: ArchConfig,
     h = frames.to(getattr(torch, cfg.compute_dtype))
     h = h + sinusoidal_positions(T, cfg.d_model, h.device).to(h.dtype)[None]
     for lp in params["enc_layers"]:
-        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps, impl)
         a, _ = attn.gqa_forward(lp["attn"], x, cfg, causal=False,
                                 use_rope=False, impl=impl)
-        h = _mlp(lp, shard_batch(h + a), cfg)
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+        h = _mlp(lp, shard_batch(h + a), cfg, impl)
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps, impl)
 
 
 def _dec_layer(h, lp, enc_out, cfg: ArchConfig, impl: str):
     """One decoder layer; returns (output, (self kv, cross kv))."""
-    x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    x = rms_norm(h, lp["ln1"], cfg.norm_eps, impl)
     a, kv = attn.gqa_forward(lp["self_attn"], x, cfg, causal=True,
                              use_rope=False, impl=impl)
     h = h + a
-    x = rms_norm(h, lp["ln_x"], cfg.norm_eps)
+    x = rms_norm(h, lp["ln_x"], cfg.norm_eps, impl)
     c, cross_kv = attn.gqa_forward(lp["cross_attn"], x, cfg, kv_x=enc_out,
                                    causal=False, use_rope=False, impl=impl)
-    return _mlp(lp, h + c, cfg), (kv, cross_kv)
+    return _mlp(lp, h + c, cfg, impl), (kv, cross_kv)
 
 
 def _embed(params: Tree, tokens: torch.Tensor, cfg: ArchConfig):
@@ -106,8 +107,9 @@ def _embed(params: Tree, tokens: torch.Tensor, cfg: ArchConfig):
                                     h.device).to(h.dtype)[None]
 
 
-def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig,
+            impl: str) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps, impl)
     return mesh_einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
@@ -120,7 +122,7 @@ def encdec_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
         "full" if remat != "none" else "none")
     for lp in params["dec_layers"]:
         h = layer(h, lp)
-    return _logits(params, h, cfg)
+    return _logits(params, h, cfg, impl)
 
 
 def encdec_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
@@ -136,12 +138,13 @@ def encdec_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,
     h, (self_kv, cross_kv) = scan_layers(
         lambda c, lp: _dec_layer(c, lp, enc_out, cfg, impl), h,
         params["dec_layers"])
-    return _logits(params, h[:, -1:, :], cfg), {"self": self_kv,
-                                                "cross": cross_kv}
+    return _logits(params, h[:, -1:, :], cfg, impl), {"self": self_kv,
+                                                      "cross": cross_kv}
 
 
 def encdec_decode_step(params: Tree, cache: Tree, batch: Dict,
-                       cfg: ArchConfig) -> Tuple[torch.Tensor, Tree]:
+                       cfg: ArchConfig, *, impl: str = "xla"
+                       ) -> Tuple[torch.Tensor, Tree]:
     """One decode step; the self-attention cache is written in place and
     the same cache returned."""
     pos = int(batch["pos"])
@@ -153,14 +156,14 @@ def encdec_decode_step(params: Tree, cache: Tree, batch: Dict,
     for lp, self_c, cross_c in zip(params["dec_layers"],
                                    split_layers(cache["self"]),
                                    split_layers(cache["cross"])):
-        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps, impl)
         a, _ = attn.gqa_decode(lp["self_attn"], x, self_c, pos, cfg,
                                use_rope=False)
         h = h + a
-        x = rms_norm(h, lp["ln_x"], cfg.norm_eps)
+        x = rms_norm(h, lp["ln_x"], cfg.norm_eps, impl)
         h = _mlp(lp, h + attn.gqa_cross_decode(lp["cross_attn"], x, cross_c,
-                                               cfg), cfg)
-    return _logits(params, h, cfg), cache
+                                               cfg), cfg, impl)
+    return _logits(params, h, cfg, impl), cache
 
 
 def encdec_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:

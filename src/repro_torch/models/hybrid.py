@@ -74,13 +74,15 @@ def _embed(params: Tree, tokens: torch.Tensor, cfg: ArchConfig):
         getattr(torch, cfg.compute_dtype))
 
 
-def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig,
+            impl: str) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps, impl)
     return mesh_einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
-def _mlp(sp: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = rms_norm(h, sp["ln2"], cfg.norm_eps)
+def _mlp(sp: Tree, h: torch.Tensor, cfg: ArchConfig,
+         impl: str) -> torch.Tensor:
+    x = rms_norm(h, sp["ln2"], cfg.norm_eps, impl)
     return shard_batch(h + swiglu(x, sp["mlp"]["gate"], sp["mlp"]["up"],
                                   sp["mlp"]["down"]))
 
@@ -89,9 +91,9 @@ def _shared_fwd(sp: Tree, h: torch.Tensor, cfg: ArchConfig,
                 impl: str) -> Tuple[torch.Tensor, Dict]:
     """One application of a shared block; returns (output, its keys and
     values)."""
-    x = rms_norm(h, sp["ln1"], cfg.norm_eps)
+    x = rms_norm(h, sp["ln1"], cfg.norm_eps, impl)
     a, kv = attn.gqa_forward(sp["attn"], x, cfg, impl=impl)
-    return _mlp(sp, h + a, cfg), kv
+    return _mlp(sp, h + a, cfg, impl), kv
 
 
 def hybrid_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
@@ -105,7 +107,7 @@ def hybrid_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
     h = _embed(params, batch["tokens"], cfg)
     for layers, sp in _groups(params, cfg):
         h = group(h, layers, sp)
-    return _logits(params, h, cfg)
+    return _logits(params, h, cfg, impl)
 
 
 def hybrid_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
@@ -127,12 +129,13 @@ def hybrid_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,
             states.append(state)
         h, kv = _shared_fwd(sp, h, cfg, impl)
         kvs.append(kv)
-    return _logits(params, h[:, -1:, :], cfg), {
+    return _logits(params, h[:, -1:, :], cfg, impl), {
         "ssm_layers": stack_trees(states), "attn": stack_trees(kvs)}
 
 
 def hybrid_decode_step(params: Tree, cache: Tree, batch: Dict,
-                       cfg: ArchConfig) -> Tuple[torch.Tensor, Tree]:
+                       cfg: ArchConfig, *, impl: str = "xla"
+                       ) -> Tuple[torch.Tensor, Tree]:
     """One decode step; every cache tensor is updated in place and the same
     cache returned."""
     pos = int(batch["pos"])
@@ -142,12 +145,12 @@ def hybrid_decode_step(params: Tree, cache: Tree, batch: Dict,
     E = cfg.hybrid.attn_every
     for g, (layers, sp) in enumerate(_groups(params, cfg)):
         for lp, lc in zip(layers, ssm_caches[g * E:(g + 1) * E]):
-            out, _ = ssm_mod.ssm_decode(lp, h, lc, cfg)
+            out, _ = ssm_mod.ssm_decode(lp, h, lc, cfg, impl=impl)
             h = h + out
-        x = rms_norm(h, sp["ln1"], cfg.norm_eps)
+        x = rms_norm(h, sp["ln1"], cfg.norm_eps, impl)
         a, _ = attn.gqa_decode(sp["attn"], x, attn_caches[g], pos, cfg)
-        h = _mlp(sp, h + a, cfg)
-    return _logits(params, h, cfg), cache
+        h = _mlp(sp, h + a, cfg, impl)
+    return _logits(params, h, cfg, impl), cache
 
 
 def hybrid_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:

@@ -230,7 +230,7 @@ def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
     H = s.n_heads(D)
     P = s.head_dim
 
-    h = rms_norm(x_in, p["norm"], cfg.norm_eps)
+    h = rms_norm(x_in, p["norm"], cfg.norm_eps, impl)
     z = mesh_einsum("bsd,de->bse", h, p["in_z"])
     xp_pre, Bp_pre, Cp_pre = _projections(p, h)
     dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])
@@ -256,7 +256,7 @@ def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
     # on a mesh, d_inner over "model" as z is: the gradient then comes back
     # whole to the heads view (torch 2.11 will not split a sharded dim there)
     y = shard_as(y.reshape(B, S, d_in), 0, 2)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, impl)
     out = shard_batch(mesh_einsum("bse,ed->bsd", y, p["out_proj"]))
     if return_state:
         # the conv state keeps the *pre-activation* projection tail so decode
@@ -266,8 +266,8 @@ def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
     return out
 
 
-def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig
-               ) -> Tuple[torch.Tensor, Dict]:
+def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig,
+               *, impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
     """Single-token decode.  x_in [B,1,D]; cache {"ssm": [B,H,P,N], "conv":
     [B,K-1,C]}, both overwritten in place with the new states."""
     s = cfg.ssm
@@ -277,7 +277,7 @@ def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig
     P = s.head_dim
     GN = s.n_groups * s.d_state
 
-    h = rms_norm(x_in, p["norm"], cfg.norm_eps)
+    h = rms_norm(x_in, p["norm"], cfg.norm_eps, impl)
     z = mesh_einsum("bsd,de->bse", h, p["in_z"])[:, 0]
     pre = torch.cat(_projections(p, h), dim=-1)[:, 0]          # [B, d_in+2GN]
     dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])[:, 0]      # [B,H]
@@ -302,7 +302,7 @@ def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig
                         Bh.float(), Ch.float())
     y = y + xh.float() * p["D_skip"].float()[None, :, None]
     y = y.reshape(-1, d_in).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, impl)
     out = mesh_einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
     cache["ssm"].copy_(st)
     cache["conv"].copy_(window[:, 1:, :])

@@ -94,10 +94,10 @@ def lm_defs(cfg: ArchConfig) -> Dict[str, Tree]:
 # --------------------------------------------------------------------------- #
 # layer bodies
 # --------------------------------------------------------------------------- #
-def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig):
+def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
     """``h`` + the layer's MLP or MoE; returns (output, MoE aux loss -- 0.0
     for a dense layer)."""
-    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    x = rms_norm(h, lp["ln2"], cfg.norm_eps, impl)
     if "moe" in lp:
         f, aux = moe_mod.moe_forward(lp["moe"], x, cfg)
     else:
@@ -109,12 +109,12 @@ def _ffn(h: torch.Tensor, lp: Dict, cfg: ArchConfig):
 def _block(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
     """One layer; returns (output, the layer's cache contents, aux loss).
     MLA always takes the einsum path, as in the reference."""
-    x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    x = rms_norm(h, lp["ln1"], cfg.norm_eps, impl)
     if cfg.mla is not None:
-        a, kv = attn.mla_forward(lp["attn"], x, cfg)
+        a, kv = attn.mla_forward(lp["attn"], x, cfg, impl=impl)
     else:
         a, kv = attn.gqa_forward(lp["attn"], x, cfg, impl=impl)
-    out, aux = _ffn(shard_batch(h + a), lp, cfg)
+    out, aux = _ffn(shard_batch(h + a), lp, cfg, impl)
     return out, kv, aux
 
 
@@ -132,9 +132,10 @@ def _layer_train(h: torch.Tensor, lp: Dict, cfg: ArchConfig, impl: str):
     return out, aux
 
 
-def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _logits(params: Tree, h: torch.Tensor, cfg: ArchConfig,
+            impl: str) -> torch.Tensor:
     with span("repro.logits"):
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps, impl)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return mesh_einsum("bsd,dv->bsv", h, w)
 
@@ -166,7 +167,7 @@ def lm_forward(params: Tree, batch: Dict, cfg: ArchConfig, *,
     for name, _, _ in _groups(cfg):
         for lp in params[name]:
             h, _ = _layer_fwd(h, lp, cfg, impl)
-    return _logits(params, h, cfg)
+    return _logits(params, h, cfg, impl)
 
 
 def lm_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
@@ -183,18 +184,20 @@ def lm_loss(params: Tree, batch: Dict, cfg: ArchConfig, *,
     if cfg.vlm is not None and "patch_embeds" in batch:
         h = h[:, batch["patch_embeds"].shape[1]:]
     tokens = batch["tokens"]
-    loss = cross_entropy_loss(_logits(params, h, cfg)[:, :-1], tokens[:, 1:])
+    loss = cross_entropy_loss(_logits(params, h, cfg, impl)[:, :-1],
+                              tokens[:, 1:])
 
     if cfg.mtp:
         # DeepSeek-V3 multi-token prediction: one extra block predicts t+2
         mp = params["mtp"]
         emb_next = _embed_tokens(params, tokens, cfg)
-        h_in = torch.cat([rms_norm(h[:, :-1], mp["ln_h"], cfg.norm_eps),
-                          rms_norm(emb_next[:, 1:], mp["ln_e"], cfg.norm_eps)],
-                         dim=-1)
+        h_in = torch.cat([rms_norm(h[:, :-1], mp["ln_h"], cfg.norm_eps,
+                                   impl),
+                          rms_norm(emb_next[:, 1:], mp["ln_e"], cfg.norm_eps,
+                                   impl)], dim=-1)
         h_mtp = mesh_einsum("bsd,dk->bsk", h_in, mp["proj"])
         h_mtp, aux_mtp = _layer_train(h_mtp, mp["block"], cfg, impl)
-        logits_mtp = _logits(params, h_mtp, cfg)
+        logits_mtp = _logits(params, h_mtp, cfg, impl)
         loss = loss + 0.3 * cross_entropy_loss(logits_mtp[:, :-1],
                                                tokens[:, 2:])
         aux = aux + aux_mtp
@@ -209,20 +212,20 @@ def lm_prefill(params: Tree, batch: Dict, cfg: ArchConfig, *,
     for name, _, _ in _groups(cfg):
         h, caches[name] = scan_layers(
             lambda c, lp: _layer_fwd(c, lp, cfg, impl), h, params[name])
-    return _logits(params, h[:, -1:, :], cfg), caches
+    return _logits(params, h[:, -1:, :], cfg, impl), caches
 
 
-def _decode_layer(h, lp, cache, pos: int, cfg: ArchConfig):
-    x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+def _decode_layer(h, lp, cache, pos: int, cfg: ArchConfig, impl: str):
+    x = rms_norm(h, lp["ln1"], cfg.norm_eps, impl)
     if cfg.mla is not None:
-        a, _ = attn.mla_decode(lp["attn"], x, cache, pos, cfg)
+        a, _ = attn.mla_decode(lp["attn"], x, cache, pos, cfg, impl=impl)
     else:
         a, _ = attn.gqa_decode(lp["attn"], x, cache, pos, cfg)
-    return _ffn(h + a, lp, cfg)[0]
+    return _ffn(h + a, lp, cfg, impl)[0]
 
 
-def lm_decode_step(params: Tree, cache: Tree, batch: Dict, cfg: ArchConfig
-                   ) -> Tuple[torch.Tensor, Tree]:
+def lm_decode_step(params: Tree, cache: Tree, batch: Dict, cfg: ArchConfig,
+                   *, impl: str = "xla") -> Tuple[torch.Tensor, Tree]:
     """One decode step.  batch: {"tokens": [B,1] int, "pos": int}.  The
     token's cache rows are written into ``cache`` in place; the same cache
     is returned."""
@@ -230,8 +233,8 @@ def lm_decode_step(params: Tree, cache: Tree, batch: Dict, cfg: ArchConfig
     h = _embed_tokens(params, batch["tokens"], cfg)
     for name, _, _ in _groups(cfg):
         for lp, lc in zip(params[name], split_layers(cache[name])):
-            h = _decode_layer(h, lp, lc, pos, cfg)
-    return _logits(params, h, cfg), cache
+            h = _decode_layer(h, lp, lc, pos, cfg, impl)
+    return _logits(params, h, cfg, impl), cache
 
 
 def lm_cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Tree:

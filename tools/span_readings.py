@@ -7,11 +7,13 @@ Runs the cell as ``python3 servebench/run.py --trace 1`` does (the same
 set-up, window, traced first pass and check), then reads the ``repro.*``
 spans of the traced pass through the profiler's launch links
 (``servebench/core/spans.py``) and prints one JSON object: the run's own
-result (its per-layer metrics and breakdown), the five span readings
+result (its per-layer metrics and breakdown), the six span readings
 (``rms_norm.us_per_token``, ``rope.us_per_token``,
-``mlp_gate.us_per_token``, ``prefill.idle_share``, ``layer.launches``),
-``idle_by_span`` and ``device_by_span``, the breakdown the harness gives
-with the spans kept out of its host records, and each span's device
+``mlp_gate.us_per_token``, ``prefill.idle_share``, ``layer.launches``, and
+``rms_norm.kernel_share``: the ``rmsnorm`` kernel's share of the norms'
+device records, at least one a norm), ``idle_by_span`` and
+``device_by_span``, the breakdown the harness gives with the spans kept
+out of its host records, and each span's device
 seconds split as the readers split kernels (GEMM, the port's kernels, the
 rest), with the sums that check them against ``other_kernels.us_per_token``
 and the busy seconds.  Needs the card.
@@ -20,6 +22,7 @@ import argparse
 import json
 import os
 import sys
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[0:1] = [ROOT, os.path.join(ROOT, "src")]
@@ -76,6 +79,21 @@ def by_kind(st: spans.SpanTrace) -> dict:
     return out
 
 
+def kernel_share(st: spans.SpanTrace, span: str = "repro.rms_norm",
+                 kernel: str = "rmsnorm") -> Optional[float]:
+    """The ``kernel`` records (by name) among the device records that the
+    ``span`` spans launched in the window (``device_by_span``'s
+    attribution), counted over at least one a span: 1.0 where each norm is
+    one launch of the kernel alone, 0 where the norms run as eager ops.
+    None where those spans launched nothing in the window."""
+    _, mine = st.device_by_span(lambda name: kernel in name)
+    _, every = st.device_by_span()
+    if not every.get(span):
+        return None
+    norms = sum(s[0] == span for s in st.spans)
+    return mine.get(span, 0) / max(every[span], norms)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
@@ -90,11 +108,15 @@ def main(argv=None) -> int:
     result, st, view = traced_run(cell, args.seed, args.seconds)
     rows = by_kind(st)
     other_s = sum(r.get("other_s", 0.0) for r in rows.values())
+    readings = spans.readings(st, view.positions)
+    share = kernel_share(st)
+    if share is not None:
+        readings["rms_norm.kernel_share"] = share
     out = {
         "workload": args.workload, "seed": args.seed,
         "correct": result["correct"], "device": result["device"],
         "metrics": result["metrics"],
-        "spans": spans.readings(st, view.positions),
+        "spans": readings,
         "breakdown": {**result["breakdown"], **spans.breakdown(st)},
         "breakdown_without_spans": tr.breakdown(st.records),
         "by_span": rows,
