@@ -247,7 +247,8 @@ BF16_TC_FLOPS = 989e12
 # and d = 128; ssd_scan: the pass kernel runs past FOLD_CHUNKS chunks only)
 SERVE_KERNEL_NAMES = {"flash_attention": ("flash_tc_kernel",
                                           "flash_tc80_kernel",
-                                          "flash_tc128_kernel"),
+                                          "flash_tc128_kernel",
+                                          "flash_tc224_kernel"),
                       "ssd_scan": ("ssd_state_kernel", "ssd_pass_kernel",
                                    "ssd_out_kernel")}
 SERVE_B, SERVE_S, SERVE_STEPS, RAGGED_S = 4, 512, 32, 300
@@ -888,7 +889,14 @@ FLASH_SHAPES = [(2, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 4, 1, 32),
                 # (the second half-filled), a key past them, a GQA group of
                 # four over nine 128-key tiles
                 (2, 1, 4, 1, 128), (1, 64, 4, 1, 128), (1, 128, 4, 1, 128),
-                (1, 129, 4, 1, 128), (2, 700, 8, 2, 128)]
+                (1, 129, 4, 1, 128), (2, 700, 8, 2, 128),
+                # head dim 224's (zamba2-7b's shared attention): one row, a
+                # 128-row block whose second warpgroup holds no row, a key
+                # past two tiles, a GQA group of two, and the cell's ragged
+                # shortest and largest prefills
+                (2, 1, 2, 1, 224), (1, 64, 2, 2, 224), (1, 129, 2, 2, 224),
+                (2, 333, 8, 2, 224), (4, 949, 32, 32, 224),
+                (4, 4096, 32, 32, 224)]
 SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (2, 64, 2, 1, 16, 32, 64), (1, 96, 3, 1, 32, 16, 32),
               (4, 512, 24, 1, 64, 128, 256), (4, 300, 24, 1, 64, 128, 300),
@@ -896,10 +904,15 @@ SSD_SHAPES = [(2, 128, 4, 1, 32, 64, 32), (1, 256, 8, 2, 64, 128, 64),
               (4, 511, 24, 1, 64, 128, 1), (4, 511, 80, 1, 64, 64, 1)]
 # zamba2-2.7b's serving shapes: 32 heads of 80 (GQA 1:1) in its shared
 # attention; 80 SSD heads of 64 with d_state 64 and one group; llava's
-# prefill, 576 patches + 512 tokens over 32 heads of 128 (GQA 32:8)
+# prefill, 576 patches + 512 tokens over 32 heads of 128 (GQA 32:8);
+# zamba2-7b's at the largest call of its benchmark cell (zamba2-7b.prefill,
+# 4 prompts of 4096 positions): 32 heads of 224 (MHA), 112 SSD heads of 64
+# in two groups of d_state 64
 FLASH_ZAMBA2 = (SERVE_B, SERVE_S, 32, 32, 80)
 FLASH_LLAVA = (SERVE_B, 576 + SERVE_S, 32, 8, 128)
 SSD_ZAMBA2 = (SERVE_B, SERVE_S, 80, 1, 64, 64, 256)
+FLASH_ZAMBA2_7B = (4, 4096, 32, 32, 224)
+SSD_ZAMBA2_7B = (4, 4096, 112, 2, 64, 64, 256)
 # tests/test_kernels.py's shapes, qwen2's width (the timed case, 2048 rows
 # of 896), a tail that is not a whole vector and rows that start unaligned
 # (999), the longest row the kernel takes (65536, the strided path), then
@@ -911,6 +924,10 @@ RMS_SHAPES = [((4, 64, 256), torch.float32), ((4, 64, 256), torch.bfloat16),
               RMS_TIMED, ((2048, 896), torch.float32),
               ((5, 999), torch.bfloat16), ((2, 65536), torch.float32),
               ((8192, 4096), torch.bfloat16), ((32768, 4096), torch.bfloat16)]
+# the grouped norm: zamba2-7b's gate norm (a 949-position call of four rows,
+# d_inner 7168 in two groups), a float32 one, and three groups of 16
+RMS_GROUPED = [((4, 949, 7168), 2, torch.bfloat16),
+               ((3, 5, 7168), 2, torch.float32), ((6, 48), 3, torch.float32)]
 # the model path's norm at llava's width, timed with its bf16 weight: chat's
 # shortest prompt (576 patches + 792 tokens) and two longdoc prompts
 RMS_LLAVA_ROWS = (1368, 8192, 32768)
@@ -930,7 +947,8 @@ SSD_BF16_SHAPES = [SSD_TIMED, (SERVE_B, RAGGED_S, 24, 1, 64, 128, RAGGED_S),
                    (1, 192, 3, 1, 20, 36, 64), (2, 96, 4, 2, 40, 24, 32),
                    SSD_ZAMBA2, (SERVE_B, RAGGED_S, 80, 1, 64, 64, RAGGED_S),
                    (2, 512, 8, 1, 64, 64, 64), (1, 256, 8, 2, 64, 64, 64),
-                   (1, 200, 4, 1, 32, 48, 64), (4, 511, 80, 1, 64, 64, 1)]
+                   (1, 200, 4, 1, 32, 48, 64), (4, 511, 80, 1, 64, 64, 1),
+                   SSD_ZAMBA2_7B, (4, 949, 112, 2, 64, 64, 949)]
 # the bf16 bar against the sequential recurrence (the reference's), and the
 # tolerance against ssd_scan_chunked_ref(bf16_points=True), which rounds
 # where the kernel rounds: they differ by float32 summation order, ex2.approx
@@ -1113,8 +1131,10 @@ def phase_model_kernels():
         "library": "F.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True) on [B,H,S,d] views",
         "zamba2": flash_record(FLASH_ZAMBA2, errs),
-        # the plain version holds 0.6 GB of float32 scores a call
-        "llava": flash_record(FLASH_LLAVA, errs, plain_iters=5)}
+        # the plain version holds 0.6 GB of float32 scores a call, 8.6 GB
+        # at zamba2-7b's
+        "llava": flash_record(FLASH_LLAVA, errs, plain_iters=5),
+        "zamba2_7b": flash_record(FLASH_ZAMBA2_7B, errs, plain_iters=3)}
 
     # ssd_scan: float32 (the CUDA-core kernel) at 1e-4 against the sequential
     # recurrence; bf16 (the tensor-core kernels) at 2e-2 against it and at
@@ -1183,7 +1203,8 @@ def phase_model_kernels():
                   "parallel; float32 (ms_f32, f32 inputs): FMAs on "
                   "the CUDA cores, one block per (b, h)",
         "library": None,
-        "zamba2": ssd_record(SSD_ZAMBA2, errs)}
+        "zamba2": ssd_record(SSD_ZAMBA2, errs),
+        "zamba2_7b": ssd_record(SSD_ZAMBA2_7B, errs)}
 
     # rmsnorm: f32 at 1e-5, bf16 at 2e-2, float32 weight; a bf16 weight
     # read as it is stored gives the bits of its float32 widening
@@ -1201,6 +1222,20 @@ def phase_model_kernels():
         if not torch.equal(ops.rmsnorm(x, w_bf), ops.rmsnorm(x, w_bf.float())):
             raise AssertionError(f"rmsnorm{shape} {dtype}: the bf16 weight's "
                                  "read differs from its float32 widening")
+        n += 1
+    # grouped (Mamba2's gate norm at zamba2-7b's: two groups of 3584 over
+    # d_inner 7168), each group against its own plain norm
+    for shape, groups, dtype in RMS_GROUPED:
+        rng = np.random.default_rng(n)
+        x, w = normal(rng, shape, dtype), normal(rng, shape[-1:])
+        got = ops.rmsnorm(x, w, groups=groups)
+        G = shape[-1] // groups
+        want = ref.rmsnorm_ref(x.reshape(*shape[:-1], groups, G),
+                               w.reshape(groups, G)).reshape(shape)
+        torch.cuda.synchronize()
+        tol = MODEL_TOL[dtype]
+        errs[dtype] = max(errs[dtype], assert_close(
+            f"rmsnorm{shape} groups={groups} {dtype}", got, want, tol, tol))
         n += 1
     rng = np.random.default_rng(0)
     (rows, d), dtype = RMS_TIMED
@@ -2071,14 +2106,15 @@ def temper(params) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Served:
-    """One model of phase serve.  ``kernel`` is the kernel its prefill runs
-    (None: none); ``parity_layers`` / ``serve_layers`` cut the depth of the
+    """One model of phase serve.  ``kernels`` are the kernels its prefill
+    runs besides ``rmsnorm`` (none: the composite path); ``parity_layers`` /
+    ``serve_layers`` cut the depth of the
     float32 parity check / the bf16 serving where the full depth does not
     fit (0: full depth); ``f64`` says whether the float64 rounding check
     fits beside the float32 copy; ``steps`` greedy decode steps."""
     name: str
     impl: str
-    kernel: object
+    kernels: tuple
     parity_layers: int = 0
     serve_layers: int = 0
     f64: bool = True
@@ -2086,32 +2122,41 @@ class Served:
 
 
 # the serving slice: each config of configs/ with the impl that reaches its
-# kernel (MLA reaches none, as in the reference).  Depth cuts: llava's float32
+# kernel (MLA reaches none, as in the reference; a hybrid's kernel lowerings
+# reach both of its kernels).  Depth cuts: zamba2-7b's float32 parity at 12
+# of 81 layers (two applications, one of each shared block); llava's float32
 # parity at 4 of 32 layers (two float32 copies of 7.2 B parameters do not fit
 # beside the float64 check); deepseek-v2-lite's at 2 of 27 (its dense layer
 # and one MoE layer); deepseek-v3 at 2 of 61 for parity (one dense and one
 # MoE layer of 256 experts: 57 GB in float32) and 4 of 61 for serving (3
 # dense + 1 MoE, 34 GB in bf16: 61 layers do not fit one card), without its
 # MTP block (read only by the training loss).
-SERVE = (Served("qwen2-0.5b", "flash", "flash_attention"),
-         Served("mamba2-130m", "pallas", "ssd_scan"),
-         Served("zamba2-2.7b", "flash", "flash_attention"),
-         Served("zamba2-2.7b", "pallas", "ssd_scan"),
-         Served("whisper-medium", "flash", "flash_attention"),
-         Served("llava-next-mistral-7b", "flash", "flash_attention",
+HYBRID_KERNELS = ("flash_attention", "ssd_scan")
+SERVE = (Served("qwen2-0.5b", "flash", ("flash_attention",)),
+         Served("mamba2-130m", "pallas", ("ssd_scan",)),
+         Served("zamba2-2.7b", "flash", HYBRID_KERNELS),
+         Served("zamba2-2.7b", "pallas", HYBRID_KERNELS),
+         Served("zamba2-7b", "flash", HYBRID_KERNELS, parity_layers=12,
+                steps=8),
+         Served("whisper-medium", "flash", ("flash_attention",)),
+         Served("llava-next-mistral-7b", "flash", ("flash_attention",),
                 parity_layers=4, steps=16),
-         Served("deepseek-v2-lite-16b", "flash", "flash_attention",
+         Served("deepseek-v2-lite-16b", "flash", ("flash_attention",),
                 parity_layers=2, steps=8),
-         Served("deepseek-v3-671b", "xla", None, parity_layers=2,
+         Served("deepseek-v3-671b", "xla", (), parity_layers=2,
                 serve_layers=4, f64=False, steps=8))
 
 
 def cut(cfg, layers: int):
     """``cfg`` at ``layers`` layers (0: as it is); a MoE config keeps one
-    dense layer per leading-dense group it had, at most ``layers - 1``."""
+    dense layer per leading-dense group it had, at most ``layers - 1``; a
+    published hybrid its applications before ``layers``."""
     if not layers:
         return cfg
     kw = {"num_layers": layers, "mtp": False}
+    if cfg.hybrid is not None and cfg.hybrid.published:
+        kw["hybrid"] = dataclasses.replace(cfg.hybrid, layer_ids=tuple(
+            i for i in cfg.hybrid.layer_ids if i < layers))
     if cfg.moe is not None and cfg.moe.first_dense_layers:
         kw["moe"] = dataclasses.replace(
             cfg.moe, first_dense_layers=min(cfg.moe.first_dense_layers,
@@ -2119,16 +2164,20 @@ def cut(cfg, layers: int):
     return dataclasses.replace(cfg, **kw)
 
 
-def kernel_launches(cfg, impl: str, kernel) -> int:
-    """Launches of ``kernel`` in one prefill: one per causal self-attention
-    (a layer; the hybrid's shared-block applications; the decoder's layers
-    of an encoder-decoder) under "flash", one per SSD layer under "pallas",
-    none for MLA."""
-    if kernel is None or cfg.mla is not None:
-        return 0
-    if cfg.family == "hybrid" and impl == "flash":
-        return cfg.num_layers // cfg.hybrid.attn_every
-    return cfg.num_layers
+def kernel_launches(cfg, kernels) -> dict:
+    """Launches of each of ``kernels`` in one prefill: ``flash_attention``
+    one per causal self-attention (a layer; the hybrid's shared-block
+    applications; the decoder's layers of an encoder-decoder), none for
+    MLA; ``ssd_scan`` one per Mamba2 layer."""
+    out = {}
+    for kernel in kernels:
+        if cfg.mla is not None:
+            out[kernel] = 0
+        elif cfg.family == "hybrid" and kernel == "flash_attention":
+            out[kernel] = len(cfg.hybrid.app_ids(cfg.num_layers))
+        else:
+            out[kernel] = cfg.num_layers
+    return out
 
 
 def seeded(seed: int) -> torch.Generator:
@@ -2317,7 +2366,7 @@ def serve_one(sv: Served):
     # the config's own bf16: B = 4 requests of 512 tokens (llava: after its
     # 576 patches), greedy steps
     scfg = cut(cfg, sv.serve_layers)
-    want = kernel_launches(scfg, sv.impl, sv.kernel)
+    want = kernel_launches(scfg, sv.kernels)
     torch.cuda.reset_peak_memory_stats()
     same_path = sv.impl == "xla"        # the composite path, no kernel
     mk = build_model(scfg, impl=sv.impl)
@@ -2333,14 +2382,15 @@ def serve_one(sv: Served):
     gen_k, t_pre, t_dec, finite = greedy(mk, params, batch, sv.steps,
                                          cfg.vocab_size)
     counts = ops.launch_counts()
-    got = counts[sv.kernel] if sv.kernel else 0
+    got = {k: counts[k] for k in sv.kernels}
     if got != want:
         raise AssertionError(
-            f"{sv.name} impl={sv.impl}: {got} {sv.kernel} launches in one "
-            f"prefill and {sv.steps} decode steps, expected {want}")
+            f"{sv.name} impl={sv.impl}: {got} launches in one prefill and "
+            f"{sv.steps} decode steps, expected {want}")
     # a kernel lowering sends every norm of a prefill or decode step to the
     # rmsnorm kernel; impl="xla" launches nothing
-    if any(c for k, c in counts.items() if k not in (sv.kernel, "rmsnorm")) \
+    if any(c for k, c in counts.items()
+           if k not in sv.kernels + ("rmsnorm",)) \
             or bool(counts["rmsnorm"]) == same_path:
         raise AssertionError(f"{sv.name} impl={sv.impl}: other kernels "
                              f"launched, or rmsnorm where it should not be "
@@ -2372,7 +2422,7 @@ def serve_one(sv: Served):
     pre_med_x = pre_med if same_path else prefill_ms(mx)
     wall, per, calls = device_times(lambda: mk.prefill(params, batch))
     busy = sum(per.values()) / 1e3
-    names = SERVE_KERNEL_NAMES.get(sv.kernel, ())
+    names = tuple(n for k in sv.kernels for n in SERVE_KERNEL_NAMES[k])
     kern = sum(t for k, t in per.items() if any(part in k for part in names))
     profile_rec = {"wall_ms": wall, "device_busy_ms": busy,
                    "kernel_device_ms": kern / 1e3,
@@ -2388,14 +2438,14 @@ def serve_one(sv: Served):
     lk, _ = mk.prefill(params, rag)
     norms = ops.launch_counts()["rmsnorm"]
     lx = lk if same_path else mx.prefill(params, rag)[0]
-    if (ops.launch_counts()[sv.kernel] if sv.kernel else 0) != want:
-        raise AssertionError(f"{sv.name}: ragged prefill missed the kernel")
+    if {k: ops.launch_counts()[k] for k in sv.kernels} != want:
+        raise AssertionError(f"{sv.name}: ragged prefill missed a kernel")
     if scfg.family in ("dense", "vlm") and not same_path \
             and norms != 2 * scfg.num_layers + 1:
         raise AssertionError(f"{sv.name}: {norms} rmsnorm launches in a "
                              f"prefill, expected two a layer and the final")
     rec = {
-        "model": sv.name, "impl": sv.impl, "kernel": sv.kernel,
+        "model": sv.name, "impl": sv.impl, "kernels": list(sv.kernels),
         "num_layers": scfg.num_layers, "config_layers": cfg.num_layers,
         "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
         "param_count": mk.param_count(), "param_bytes": param_bytes,
@@ -2432,8 +2482,8 @@ def phase_serve():
     by_kernel = {}
     for rec in recs:
         path = f"{rec['model']}/{rec['impl']}"
-        if rec["kernel"]:
-            by_kernel.setdefault(rec["kernel"], {})[path] = rec["launches"]
+        for kernel, n in rec["launches"].items():
+            by_kernel.setdefault(kernel, {})[path] = n
         by_kernel.setdefault("rmsnorm", {})[path] = \
             rec["rmsnorm_launches_per_prefill"]
     emit("serve_summary", seconds=time.perf_counter() - t0,
@@ -3415,24 +3465,27 @@ def main() -> None:
                  "src/repro/kernels/flash_attention.py:29",
                  mk["flash_attention"]["tolerance"],
                  "impl='flash' prefills: one launch per causal "
-                 "self-attention (qwen2-0.5b and llava per layer, zamba2 per "
-                 "shared-block application, whisper per decoder layer; "
+                 "self-attention (qwen2-0.5b and llava per layer, the "
+                 "zamba2s per shared-block application under either kernel "
+                 "lowering, whisper per decoder layer; "
                  "deepseek's MLA none, as in the reference), and qwen2-0.5b's "
                  "prefill on the 2x2 mesh of phase mesh (each of 4 ranks "
                  "launches on its shard)"),
              launches_by_path={**served["flash_attention"],
                                "mesh_prefill": mesh_launches},
              at_zamba2=mk["flash_attention"]["zamba2"],
-             at_llava=mk["flash_attention"]["llava"]),
+             at_llava=mk["flash_attention"]["llava"],
+             at_zamba2_7b=mk["flash_attention"]["zamba2_7b"]),
         dict(row("ssd_scan", mk["ssd_scan"], sum(served["ssd_scan"].values()),
                  "src/repro/kernels/ssd_scan.py:25",
                  mk["ssd_scan"]["tolerance"],
-                 "impl='pallas' prefills: one call per Mamba2 layer "
-                 "(mamba2-130m, zamba2-2.7b)"),
+                 "impl='pallas' prefills of mamba2-130m, and either kernel "
+                 "lowering of the zamba2s: one call per Mamba2 layer"),
              launches_by_path=served["ssd_scan"],
              cuda_launches_per_call=mk["ssd_scan"][
                  "cuda_launches_per_call"],
-             at_zamba2=mk["ssd_scan"]["zamba2"]),
+             at_zamba2=mk["ssd_scan"]["zamba2"],
+             at_zamba2_7b=mk["ssd_scan"]["zamba2_7b"]),
         dict(row("rmsnorm", mk["rmsnorm"],
                  sum(served["rmsnorm"].values()),
                  "src/repro/kernels/rmsnorm.py:20",

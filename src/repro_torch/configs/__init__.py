@@ -14,6 +14,7 @@ _ARCH_MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "qwen2-0.5b": "qwen2_0_5b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "zamba2-7b": "zamba2_7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
@@ -76,9 +77,24 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.family in ("ssm", "hybrid"):
         kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=16,
                               n_groups=1, chunk_size=8)
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" and cfg.hybrid.published:
+        # the published form keeps its irregular ids (gaps 1 and 2: three
+        # applications over both blocks), adapters and two SSM groups.  Its
+        # head is untied here: with the embeddings at std 0.02 and a norm
+        # after each block's attention, the input side's gradient of the
+        # embeddings is ~1e3 at init, and a tied head then takes a step of
+        # plain SGD (the smoke tests' lr 0.05) far past its minimum.  The
+        # tied head is held to the reference at small size in
+        # servebench/tests/test_servebench_zamba2.py.
+        kw["num_layers"] = 5
+        kw["hybrid"] = HybridConfig(shared_attn_blocks=2, layer_ids=(1, 2, 4),
+                                    adapter_rank=8)
+        kw["ssm"] = dataclasses.replace(kw["ssm"], n_groups=2)
+        kw["tie_embeddings"] = False
+    elif cfg.family == "hybrid":
         kw["num_layers"] = 4
         kw["hybrid"] = HybridConfig(attn_every=2, shared_attn_blocks=2)
+    if cfg.family == "hybrid":
         kw["num_heads"] = 4
         kw["num_kv_heads"] = 4
         kw["head_dim"] = 16

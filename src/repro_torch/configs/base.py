@@ -61,9 +61,39 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class HybridConfig:
-    """Zamba2-style hybrid: SSM trunk + shared attention block every N layers."""
+    """Zamba2-style hybrid: SSM trunk + shared attention blocks.
+
+    Two forms.  With ``layer_ids`` empty (the reference's): a shared
+    attention + SwiGLU block, over ``d_model`` with residuals inside it,
+    after every ``attn_every`` SSM layers.  With ``layer_ids`` given (the
+    published Zamba2 form, arXiv:2411.15242 and Zyphra's config): before
+    each listed layer a shared block reads concat(hidden, embeddings)
+    (``2 d_model`` wide; ``num_heads`` x ``head_dim`` attention, its output
+    product back to ``d_model``, softmax scale ``(head_dim / 2) ** -0.5``),
+    then a gated-GELU MLP whose input product carries a LoRA adapter of
+    ``adapter_rank`` of its own for each application, then a linear of
+    each application's own; the result is added to the hidden state.
+    Either way the blocks are used in turn (application j: block
+    ``j % shared_attn_blocks``)."""
     attn_every: int = 6       # apply the shared attention block every N ssm layers
     shared_attn_blocks: int = 1  # number of distinct shared blocks (round-robin)
+    layer_ids: Tuple[int, ...] = ()  # published form: layers a block precedes
+    adapter_rank: int = 0     # published form: rank of each application's LoRA
+
+    def __post_init__(self):
+        # a list (as a JSON file states the ids) is held as the tuple
+        object.__setattr__(self, "layer_ids", tuple(self.layer_ids))
+
+    @property
+    def published(self) -> bool:
+        return bool(self.layer_ids)
+
+    def app_ids(self, num_layers: int) -> Tuple[int, ...]:
+        """The layers each application of a shared block precedes
+        (``num_layers``: after the last)."""
+        if self.published:
+            return tuple(self.layer_ids)
+        return tuple(range(self.attn_every, num_layers + 1, self.attn_every))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,8 +174,7 @@ class ArchConfig:
             n += self.num_layers * self._ssm_layer_params(D)
         elif self.family == "hybrid":
             n += self.num_layers * self._ssm_layer_params(D)
-            n_shared = self._attn_params(D) + self._mlp_params(D, self.d_ff) + 2 * D
-            n += (self.hybrid.shared_attn_blocks if self.hybrid else 1) * n_shared
+            n += self._hybrid_shared_params(D)
         elif self.encdec is not None:
             enc = self.encdec.encoder_layers * (
                 self._attn_params(D) + self._mlp_params(D, self.d_ff) + 2 * D)
@@ -195,6 +224,20 @@ class ArchConfig:
             n += (self.num_heads + 2 * self.num_kv_heads) * hd
         return n
 
+    def _hybrid_shared_params(self, D: int) -> int:
+        """The shared blocks, and in the published form each application's
+        adapter and linear."""
+        hb = self.hybrid or HybridConfig()
+        if not hb.published:
+            n_shared = self._attn_params(D) + self._mlp_params(D, self.d_ff) \
+                + 2 * D
+            return hb.shared_attn_blocks * n_shared
+        hd, H, KV = self.resolved_head_dim, self.num_heads, self.num_kv_heads
+        attn = 2 * D * (H + 2 * KV) * hd + H * hd * D
+        n_shared = attn + self._mlp_params(D, self.d_ff) + 2 * D + D
+        per_app = hb.adapter_rank * (D + 2 * self.d_ff) + D * D
+        return hb.shared_attn_blocks * n_shared + len(hb.layer_ids) * per_app
+
     def _mlp_params(self, D: int, d_ff: int) -> int:
         return 3 * D * d_ff  # SwiGLU: gate, up, down
 
@@ -235,7 +278,8 @@ class ArchConfig:
             hd = self.mla.qk_nope_head_dim + self.mla.qk_rope_head_dim
         n_attn_layers = self.num_layers
         if self.family == "hybrid":
-            n_attn_layers = self.num_layers // (self.hybrid.attn_every if self.hybrid else 6)
+            n_attn_layers = len(self.hybrid.app_ids(self.num_layers)) \
+                if self.hybrid else self.num_layers // 6
         base += 4.0 * n_attn_layers * self.num_heads * hd * max(context_len, 1)
         return base
 
@@ -247,6 +291,11 @@ class ArchConfig:
         if self.family in ("ssm", "hybrid"):
             assert self.ssm is not None
             assert self.ssm.d_inner(self.d_model) % self.ssm.head_dim == 0
+            assert self.ssm.n_heads(self.d_model) % self.ssm.n_groups == 0
+        if self.family == "hybrid" and self.hybrid.published:
+            ids = self.hybrid.layer_ids
+            assert list(ids) == sorted(set(ids)) and 0 <= ids[0] \
+                and ids[-1] < self.num_layers, ids
         if self.family == "moe":
             assert self.moe is not None
         if self.family == "audio":

@@ -52,9 +52,9 @@ _SIGNATURES = {
     # psi, omega, floors, capacity, mask, alloc, feasible, pinned, N, S,
     # route, rows, stages, ctas, warps, stream
     "alloc_active_set_launch": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
-    # x, w, y, rows, d, eps, x_dtype, w_dtype, stream
+    # x, w, y, rows, d, eps, x_dtype, w_dtype, groups, stream
     "rmsnorm_launch": [_c_ptr] * 3 + [_c_int, _c_int, _c_float, _c_int,
-                                      _c_int, _c_ptr],
+                                      _c_int, _c_int, _c_ptr],
     # q, k, v, o, B, S, H, KV, D, scale, causal, dtype, stream
     "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 5
     + [_c_float, _c_int, _c_int, _c_ptr],

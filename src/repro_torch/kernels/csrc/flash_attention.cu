@@ -94,6 +94,33 @@
 //     runs alone and the second only releases tiles.
 // Its arithmetic is the other head dims'.
 //
+// bfloat16 at D = 224 (zamba2-7b's shared attention: 32 heads of 224, MHA,
+// over the concatenated 7168-wide input; the model passes its own scale,
+// (224 / 2)^-0.5), flash_tc224_kernel: at (4, 4096, 32, 32, 224) the work
+// is 0.94 GB and 962 GFLOP causal, bound by operations (0.97 ms at 989
+// TFLOP/s, 0.28 ms by bytes).  A 64-row tile of 224 columns is 28 KB, so a
+// 128-row Q (56 KB) and a two-stage ring of 64-key K + V tiles (112 KB)
+// fill one block an SM, and the output accumulator is 112 registers a
+// thread.  So:
+//   * a tile is exactly 224 columns wide: three 64-column TMA boxes at the
+//     128-byte swizzle and a 32-column one at the 64-byte swizzle; Q K^T
+//     takes its fourteen k16 steps across the four boxes (m64n64, each
+//     step with its own box's descriptor layout), and P V is an N = 64
+//     wgmma on each 64-column box and an N = 32 one on the last;
+//   * 128 q rows in two warpgroups that share every K / V tile, eight warps
+//     and no producer warp: a ninth would leave 168 registers a thread (an
+//     SM partition's 16K over three warps) against the 112 accumulators, 32
+//     scores and 16 P fragments each thread holds.  Thread 0 loads Q and
+//     the first two tiles; after that, each warpgroup counts its release of
+//     a stage in shared memory, and the one that releases it last loads the
+//     tile two ahead there, so no warp waits on the other warpgroup;
+//   * each warpgroup runs Q K^T, the softmax and P V in turn, waiting for
+//     each product, as at D = 128: the two warpgroups' products fill each
+//     other's softmax;
+//   * the output goes through the warpgroup's Q tile, in the layout TMA
+//     writes, to four TMA stores, which drop the rows past S.
+// Its arithmetic is the other head dims'.
+//
 // float32: the products stay f32 FMAs on the CUDA cores (inputs staged in
 // shared memory, each thread a 4 x 8 patch of the score tile and a 4 x D/8
 // patch of the output, P through shared memory): the f32 case is held to
@@ -235,8 +262,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncthreads();
 
         // acc += P V over this tile's keys (unrolled by 2 at D = 80, where
-        // 4 leaves ptxas at 128 registers with a 4-byte spill)
-#pragma unroll (D == 80 ? 2 : 4)
+        // 4 leaves ptxas at 128 registers with a 4-byte spill, and at 224)
+#pragma unroll (D == 80 || D == 224 ? 2 : 4)
         for (int c = 0; c < BK; ++c) {
             const float4 pv =
                 *reinterpret_cast<const float4*>(&PT[c * (BQ + PAD) + tr * 4]);
@@ -1073,6 +1100,329 @@ cudaError_t launch_tc128(const void* q, const void* k, const void* v,
     return cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// bfloat16 at head dim 224: a tile exactly 224 columns wide, 128 q rows a
+// block in two warpgroups that share each K / V tile; the warpgroup that
+// releases a stage last refills it
+// --------------------------------------------------------------------------
+// The D = 224 tile plan: the TMA boxes of one [64 rows x 224] tile, each
+// {columns, swizzle row bytes} — three 64-column boxes at the 128-byte
+// swizzle, then a 32-column box at the 64-byte swizzle; no column is zero
+// fill.
+constexpr int D224_BOX_COLS[4] = {64, 64, 64, 32};
+constexpr int D224_BOX_ROW_B[4] = {128, 128, 128, 64};
+static_assert(D224_BOX_COLS[0] + D224_BOX_COLS[1] + D224_BOX_COLS[2]
+              + D224_BOX_COLS[3] == 224
+              && D224_BOX_COLS[0] * 2 == D224_BOX_ROW_B[0]
+              && D224_BOX_COLS[3] * 2 == D224_BOX_ROW_B[3],
+              "the D = 224 boxes cover 224 columns, each one swizzle row");
+constexpr int D224_WG = 2;                          // consumer warpgroups
+constexpr int D224_BQ = 64 * D224_WG;               // q rows a block
+constexpr int D224_BK = BK;                         // keys a k tile
+constexpr int D224_STAGES = 2;                      // K/V ring depth
+// eight warps, two an SM partition: 255 registers a thread for the 112
+// output accumulators, 32 scores and 16 P fragments a warpgroup holds (a
+// ninth, producer warp would cap them at 168)
+constexpr int D224_THREADS = 128 * D224_WG;
+constexpr int D224_BOX_A = 64 * D224_BOX_ROW_B[0];  // 8 KB: a 64-column box
+constexpr int D224_TILE = 3 * D224_BOX_A + 64 * D224_BOX_ROW_B[3];  // 28 KB
+// Q (one tile a warpgroup, reused for the output), the K/V ring, then
+// 1 + STAGES mbarriers and STAGES release counts, and alignment: 169 KB,
+// one block an SM
+constexpr int D224_SMEM = (D224_WG + 2 * D224_STAGES) * D224_TILE + 1024
+    + 8 * (1 + D224_STAGES) + 4 * D224_STAGES;
+static_assert(D224_SMEM <= 232448, "one block's shared memory");
+static_assert(D224_TILE % 1024 == 0, "every box on a swizzle repeat");
+
+// S = Q K^T over the 224 columns: four k16 steps in each 128-byte box, two
+// in the 64-byte one, each step's descriptors in its own box's layout
+__device__ __forceinline__ void qk224(float (&s)[32], uint32_t sQ,
+                                      uint32_t sK) {
+    wgmma_ss_n64_first(s, make_desc(sQ, 16, 1024, 1),
+                       make_desc(sK, 16, 1024, 1));
+#pragma unroll
+    for (int kk = 1; kk < 12; ++kk) {
+        const uint32_t off = (kk >> 2) * D224_BOX_A + (kk & 3) * 32;
+        wgmma_ss_n64(s, make_desc(sQ + off, 16, 1024, 1),
+                     make_desc(sK + off, 16, 1024, 1), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t off = 3 * D224_BOX_A + kk * 32;
+        wgmma_ss_n64(s, make_desc(sQ + off, 16, 512, 2),
+                     make_desc(sK + off, 16, 512, 2), 1);
+    }
+}
+
+// O += P V over the 64 keys of one tile: per k16 step, N = 64 on each
+// 128-byte box and N = 32 on the 64-byte one, P from registers, V MN-major
+__device__ __forceinline__ void pv224(float (&acc)[3][32], float (&acc32)[16],
+                                      const uint32_t (&pa)[4][4],
+                                      uint32_t sV) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {                // keys 16 kk ..
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            wgmma_rs_n64(acc[c], pa[kk],
+                         make_desc(sV + c * D224_BOX_A + kk * 16 * 128,
+                                   D224_BOX_A, 1024, 1));
+        wgmma_rs_n32(acc32, pa[kk],
+                     make_desc(sV + 3 * D224_BOX_A + kk * 16 * 64, 4096, 512,
+                               2));
+    }
+}
+
+__global__ void __launch_bounds__(D224_THREADS, 1)
+flash_tc224_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_q32,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_k32,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_v32,
+                   const __grid_constant__ CUtensorMap map_o,
+                   const __grid_constant__ CUtensorMap map_o32, int S, int H,
+                   int KV, float scale_log2, int causal) {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+    const uint32_t sKV = base + D224_WG * D224_TILE;  // stage st: K, then V
+    const uint32_t barQ = sKV + 2 * D224_STAGES * D224_TILE;
+    auto full = [&](int st) { return barQ + 8 * (1 + st); };
+    // released[st]: releases of stage st so far, n_wg a tile
+    int* released = reinterpret_cast<int*>(
+        gbase + (barQ + 8 * (1 + D224_STAGES) - base));
+
+    const int tid = threadIdx.x;
+    const int bh = blockIdx.x;
+    const int b = bh / H, h = bh % H;
+    const int kvh = h / (H / KV);
+    const int qt = gridDim.y - 1 - blockIdx.y;      // longest tiles first
+    const int q0 = qt * D224_BQ;
+    const int n_k_all = (S + D224_BK - 1) / D224_BK;
+    const int n_k = causal && 2 * qt + 2 < n_k_all ? 2 * qt + 2 : n_k_all;
+    const int n_wg = q0 + 64 < S ? 2 : 1;            // warpgroups with rows
+
+    // K / V tile j into stage j % STAGES, by one thread
+    auto load_kv = [&](int j) {
+        const int st = j % D224_STAGES;
+        const uint32_t sK = sKV + 2 * st * D224_TILE;
+        const uint32_t sV = sK + D224_TILE;
+        const int s0 = j * D224_BK;
+        mbar_expect_tx(full(st), 2 * D224_TILE);
+        for (int c = 0; c < 3; ++c) {
+            tma_load(&map_k, sK + c * D224_BOX_A, full(st), 64 * c, kvh, s0,
+                     b);
+            tma_load(&map_v, sV + c * D224_BOX_A, full(st), 64 * c, kvh, s0,
+                     b);
+        }
+        tma_load(&map_k32, sK + 3 * D224_BOX_A, full(st), 192, kvh, s0, b);
+        tma_load(&map_v32, sV + 3 * D224_BOX_A, full(st), 192, kvh, s0, b);
+    };
+    if (tid == 0) {
+        mbar_init(barQ, 1);
+        for (int st = 0; st < D224_STAGES; ++st) {
+            mbar_init(full(st), 1);
+            released[st] = 0;
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // both Q tiles (rows past S arrive as zeros) and the first STAGES
+    // K / V tiles
+    if (tid == 0) {
+        mbar_expect_tx(barQ, D224_WG * D224_TILE);
+        for (int w = 0; w < D224_WG; ++w) {
+            const uint32_t dst = base + w * D224_TILE;
+            for (int c = 0; c < 3; ++c)
+                tma_load(&map_q, dst + c * D224_BOX_A, barQ, 64 * c, h,
+                         q0 + 64 * w, b);
+            tma_load(&map_q32, dst + 3 * D224_BOX_A, barQ, 192, h,
+                     q0 + 64 * w, b);
+        }
+        for (int j = 0; j < n_k && j < D224_STAGES; ++j) load_kv(j);
+    }
+
+    const int wg = tid >> 7;
+    if (wg >= n_wg) return;                          // rows all past S
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;           // fragment row / col pair
+    const int diag = 2 * qt + wg;                    // its diagonal tile
+    const int n_kw = causal && diag + 1 < n_k_all ? diag + 1 : n_k_all;
+    const uint32_t sQ = base + wg * D224_TILE;
+    const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+
+    // acc[c][4i + e]: row (e < 2 ? g : g + 8), column 64c + 8i + 2t + (e & 1)
+    // for the three 64-column boxes; acc32 the same over columns 192 ..
+    float acc[3][32], acc32[16], s[32];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc32[i] = 0.0f;
+    float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+
+    mbar_wait(barQ, 0);
+    // tile j: Q K^T, its softmax, then P V, each product waited for before
+    // the next; the other warpgroup's products run under this one's softmax
+    for (int j = 0; j < n_kw; ++j) {
+        const int st = j % D224_STAGES;
+        const uint32_t sK = sKV + 2 * st * D224_TILE;
+        mbar_wait(full(st), (j / D224_STAGES) & 1);
+        wgmma_fence();
+        qk224(s, sQ, sK);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+
+        // mask the diagonal / ragged tile, online softmax (m in score units,
+        // p = 2^(s * scale_log2 - m * scale_log2)); s[4c + e] is row
+        // (e < 2 ? g : g + 8), key 8c + 2t + (e & 1)
+        const int k0 = j * D224_BK;
+        const bool masked = (causal && j == diag) || k0 + D224_BK > S;
+        float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            if (masked) {
+                const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+                const int qp = (i & 2) ? row1 : row0;
+                if (kp >= S || (causal && kp > qp)) s[i] = NEG;
+            }
+            if (i & 2) mx1 = fmaxf(mx1, s[i]);
+            else mx0 = fmaxf(mx0, s[i]);
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_WARP, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_WARP, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float a0 = ex2((m0 - mn0) * scale_log2);
+        const float a1 = ex2((m1 - mn1) * scale_log2);
+        m0 = mn0;
+        m1 = mn1;
+        const float off0 = -mn0 * scale_log2, off1 = -mn1 * scale_log2;
+        float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const float p = ex2(fmaf(s[i], scale_log2, (i & 2) ? off1 : off0));
+            s[i] = p;
+            if (i & 2) rs1 += p;
+            else rs0 += p;
+        }
+        l0 = l0 * a0 + rs0;          // this lane's share; the quad sums last
+        l1 = l1 * a1 + rs1;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[c][i] *= (i & 2) ? a1 : a0;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc32[i] *= (i & 2) ? a1 : a0;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+            pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) fence_regs(acc[c]);
+        fence_regs(acc32);
+        fence_regs(pa);
+        wgmma_fence();
+        pv224(acc, acc32, pa, sK + D224_TILE);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < 3; ++c) fence_regs(acc[c]);
+        fence_regs(acc32);
+        fence_regs(pa);
+        // stage st is read by this warpgroup; the last of the warpgroups
+        // with rows to release it loads tile j + STAGES there (both read
+        // every tile before n_k - 1)
+        if (j + D224_STAGES < n_k) {
+            named_sync(1 + wg, 128);
+            if ((tid & 127) == 0
+                && atomicAdd(&released[st], 1)
+                       == (j / D224_STAGES + 1) * n_wg - 1)
+                load_kv(j + D224_STAGES);
+        }
+    }
+
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 1);
+    l0 += __shfl_xor_sync(FULL_WARP, l0, 2);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 1);
+    l1 += __shfl_xor_sync(FULL_WARP, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+
+    // epilogue: O into this warpgroup's Q tile (its last reader, Q K^T, is
+    // done) in the layout TMA loads write — 16-byte pieces of a row
+    // permuted by the swizzle: piece ^= row % 8 in a 128-byte box, ^=
+    // (row / 2) % 4 in the 64-byte one — then four TMA stores, which drop
+    // the rows past S
+    named_sync(1 + wg, 128);
+    uint8_t* gQ = gbase + (sQ - base);
+    const int r0 = 16 * warp + g, r1 = r0 + 8;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            uint8_t* box = gQ + c * D224_BOX_A + 4 * t;
+            *reinterpret_cast<__nv_bfloat162*>(
+                box + r0 * 128 + ((i ^ (r0 & 7)) << 4)) =
+                __floats2bfloat162_rn(acc[c][4 * i] / den0,
+                                      acc[c][4 * i + 1] / den0);
+            *reinterpret_cast<__nv_bfloat162*>(
+                box + r1 * 128 + ((i ^ (r1 & 7)) << 4)) =
+                __floats2bfloat162_rn(acc[c][4 * i + 2] / den1,
+                                      acc[c][4 * i + 3] / den1);
+        }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        uint8_t* box = gQ + 3 * D224_BOX_A + 4 * t;
+        *reinterpret_cast<__nv_bfloat162*>(
+            box + r0 * 64 + ((i ^ ((r0 >> 1) & 3)) << 4)) =
+            __floats2bfloat162_rn(acc32[4 * i] / den0, acc32[4 * i + 1] / den0);
+        *reinterpret_cast<__nv_bfloat162*>(
+            box + r1 * 64 + ((i ^ ((r1 >> 1) & 3)) << 4)) =
+            __floats2bfloat162_rn(acc32[4 * i + 2] / den1,
+                                  acc32[4 * i + 3] / den1);
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if ((tid & 127) == 0) {
+        for (int c = 0; c < 3; ++c)
+            tma_store(&map_o, sQ + c * D224_BOX_A, 64 * c, h, q0 + 64 * wg, b);
+        tma_store(&map_o32, sQ + 3 * D224_BOX_A, 192, h, q0 + 64 * wg, b);
+        tma_store_drain();
+    }
+}
+
+cudaError_t launch_tc224(const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int KV, float scale,
+                         int causal, cudaStream_t st) {
+    if (reinterpret_cast<uintptr_t>(o) & 15) return cudaErrorMisalignedAddress;
+    CUtensorMap mq, mq32, mk, mk32, mv, mv32, mo, mo32;
+    if (!make_map<64>(&mq, q, B, S, H, 224)
+        || !make_map<32>(&mq32, q, B, S, H, 224)
+        || !make_map<64>(&mk, k, B, S, KV, 224)
+        || !make_map<32>(&mk32, k, B, S, KV, 224)
+        || !make_map<64>(&mv, v, B, S, KV, 224)
+        || !make_map<32>(&mv32, v, B, S, KV, 224)
+        || !make_map<64>(&mo, o, B, S, H, 224)
+        || !make_map<32>(&mo32, o, B, S, H, 224))
+        return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_tc224_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        D224_SMEM);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(B * H, (S + D224_BQ - 1) / D224_BQ);
+    flash_tc224_kernel<<<grid, D224_THREADS, D224_SMEM, st>>>(
+        mq, mq32, mk, mk32, mv, mv32, mo, mo32, S, H, KV,
+        scale * 1.4426950408889634f, causal);
+    return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int H, int KV, float scale, int causal,
@@ -1093,8 +1443,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
 }
 
-// head dims 80 and 128 take designs of their own (flash_tc80_kernel,
-// flash_tc128_kernel)
+// head dims 80, 128 and 224 take designs of their own (flash_tc80_kernel,
+// flash_tc128_kernel, flash_tc224_kernel)
 template <>
 cudaError_t launch_tc<80>(const void* q, const void* k, const void* v,
                           void* o, int B, int S, int H, int KV, float scale,
@@ -1107,6 +1457,13 @@ cudaError_t launch_tc<128>(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int KV, float scale,
                            int causal, cudaStream_t st) {
     return launch_tc128(q, k, v, o, B, S, H, KV, scale, causal, st);
+}
+
+template <>
+cudaError_t launch_tc<224>(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int KV, float scale,
+                           int causal, cudaStream_t st) {
+    return launch_tc224(q, k, v, o, B, S, H, KV, scale, causal, st);
 }
 
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
@@ -1123,6 +1480,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
         REPRO_FLASH_CASE(64)
         REPRO_FLASH_CASE(80)
         REPRO_FLASH_CASE(128)
+        REPRO_FLASH_CASE(224)
         default: return cudaErrorInvalidValue;
     }
 #undef REPRO_FLASH_CASE
@@ -1132,7 +1490,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // q, o: [B, S, H, D]; k, v: [B, S, KV, D]; all contiguous, one dtype
 // (DTYPE_F32: CUDA cores; DTYPE_BF16: tensor cores, q / k / v 16-byte
-// aligned for TMA).  D in {16, 32, 64, 80, 128}, H a multiple of KV.  Launches
+// aligned for TMA).  D in {16, 32, 64, 80, 128, 224}, H a multiple of KV.
+// Launches
 // on `stream`, never synchronises; returns the launch's cudaError_t
 // (0 on success).
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,

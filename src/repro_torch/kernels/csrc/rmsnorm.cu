@@ -27,6 +27,10 @@
 // bits.
 // 1/sqrt is IEEE-rounded rather than the approximate rsqrtf so float32 rows
 // match the plain version to ~1 ulp.
+// With `groups` > 1 the weight holds `groups` rows of d and row r of x is
+// scaled by part r % groups: a [.., groups * d] tensor viewed as rows of d
+// is normalised group by group (Mamba2's grouped gate norm) in the same
+// launch.
 #include "common.cuh"
 #include <math.h>
 
@@ -99,13 +103,14 @@ __device__ __forceinline__ void load_w(const W* __restrict__ w, int c,
 template <typename T, typename W, int NV>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 rmsnorm_rows(const T* __restrict__ x, const W* __restrict__ w,
-             T* __restrict__ y, int rows, int d, float eps) {
+             T* __restrict__ y, int rows, int d, float eps, int groups) {
     constexpr int VEC = Vec<T>::N;
     const int lane = threadIdx.x & 31;
     const size_t row = static_cast<size_t>(blockIdx.x) * ROW_WARPS
                        + (threadIdx.x >> 5);
     if (row >= static_cast<size_t>(rows)) return;
     const size_t off = row * d;
+    w += static_cast<size_t>(row % groups) * d;
     const T* xr = x + off;
     T* yr = y + off;
     // the row starts off % VEC elements past a 16-byte boundary
@@ -172,9 +177,10 @@ rmsnorm_rows(const T* __restrict__ x, const W* __restrict__ w,
 template <typename T, typename W>
 __global__ void __launch_bounds__(LONG_THREADS)
 rmsnorm_long(const T* __restrict__ x, const W* __restrict__ w,
-             T* __restrict__ y, int d, float eps) {
+             T* __restrict__ y, int d, float eps, int groups) {
     __shared__ float s_part[LONG_THREADS / 32];
     const size_t off = static_cast<size_t>(blockIdx.x) * d;
+    w += static_cast<size_t>(blockIdx.x % groups) * d;
     float ss = 0.0f;
     for (int i = threadIdx.x; i < d; i += LONG_THREADS) {
         const float v = to_f32(x[off + i]);
@@ -194,7 +200,7 @@ rmsnorm_long(const T* __restrict__ x, const W* __restrict__ w,
 
 template <typename T, typename W>
 cudaError_t launch(const void* x, const void* w, void* y, int rows, int d,
-                   float eps, cudaStream_t st) {
+                   float eps, int groups, cudaStream_t st) {
     const T* xp = static_cast<const T*>(x);
     const W* wp = static_cast<const W*>(w);
     T* yp = static_cast<T*>(y);
@@ -203,54 +209,60 @@ cudaError_t launch(const void* x, const void* w, void* y, int rows, int d,
     constexpr int threads = ROW_WARPS * 32;
     if (per_lane <= 1)
         rmsnorm_rows<T, W, 1><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
-                                                          d, eps);
+                                                          d, eps, groups);
     else if (per_lane <= 2)
         rmsnorm_rows<T, W, 2><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
-                                                          d, eps);
+                                                          d, eps, groups);
     else if (per_lane <= 4)
         rmsnorm_rows<T, W, 4><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
-                                                          d, eps);
+                                                          d, eps, groups);
     else if (per_lane <= 8)
         rmsnorm_rows<T, W, 8><<<blocks, threads, 0, st>>>(xp, wp, yp, rows,
-                                                          d, eps);
+                                                          d, eps, groups);
     else if (per_lane <= MAX_NV)
         rmsnorm_rows<T, W, MAX_NV><<<blocks, threads, 0, st>>>(xp, wp, yp,
-                                                               rows, d, eps);
+                                                               rows, d, eps,
+                                                               groups);
     else
-        rmsnorm_long<T, W><<<rows, LONG_THREADS, 0, st>>>(xp, wp, yp, d, eps);
+        rmsnorm_long<T, W><<<rows, LONG_THREADS, 0, st>>>(xp, wp, yp, d, eps,
+                                                         groups);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_x(const void* x, const void* w, void* y, int rows, int d,
-                     float eps, int w_dtype, cudaStream_t st) {
+                     float eps, int w_dtype, int groups, cudaStream_t st) {
     if (w_dtype == DTYPE_F32)
-        return launch<T, float>(x, w, y, rows, d, eps, st);
+        return launch<T, float>(x, w, y, rows, d, eps, groups, st);
     if (w_dtype == DTYPE_BF16)
-        return launch<T, __nv_bfloat16>(x, w, y, rows, d, eps, st);
+        return launch<T, __nv_bfloat16>(x, w, y, rows, d, eps, groups, st);
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x, y: [rows, d] contiguous, dtype `x_dtype`; w: [d] contiguous, dtype
-// `w_dtype` (each DTYPE_F32 or DTYPE_BF16); x, w and y 16-byte aligned.
-// Launches on `stream`, never synchronises; returns the launch's
-// cudaError_t (0 on success).
+// x, y: [rows, d] contiguous, dtype `x_dtype`; w: [groups * d] contiguous,
+// dtype `w_dtype` (each DTYPE_F32 or DTYPE_BF16), row r scaled by part
+// r % groups; x, w and y 16-byte aligned, and each part of w too where
+// groups > 1.  Launches on `stream`, never synchronises; returns the
+// launch's cudaError_t (0 on success).
 REPRO_EXPORT int rmsnorm_launch(const void* x, const void* w, void* y,
                                 int rows, int d, float eps, int x_dtype,
-                                int w_dtype, void* stream) {
-    if (rows <= 0 || d <= 0 || d > MAX_D)
+                                int w_dtype, int groups, void* stream) {
+    if (rows <= 0 || d <= 0 || d > MAX_D || groups < 1)
         return static_cast<int>(cudaErrorInvalidValue);
+    if (groups > 1 && d * (w_dtype == DTYPE_F32 ? 4 : 2) % 16)
+        return static_cast<int>(cudaErrorMisalignedAddress);
     if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)
          | reinterpret_cast<uintptr_t>(y)) & 15)
         return static_cast<int>(cudaErrorMisalignedAddress);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaErrorInvalidValue;
     if (x_dtype == DTYPE_F32)
-        err = launch_x<float>(x, w, y, rows, d, eps, w_dtype, st);
+        err = launch_x<float>(x, w, y, rows, d, eps, w_dtype, groups, st);
     else if (x_dtype == DTYPE_BF16)
-        err = launch_x<__nv_bfloat16>(x, w, y, rows, d, eps, w_dtype, st);
+        err = launch_x<__nv_bfloat16>(x, w, y, rows, d, eps, w_dtype, groups,
+                                      st);
     return static_cast<int>(err);
 }
 

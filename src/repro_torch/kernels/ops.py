@@ -18,6 +18,7 @@ on each rank's shard.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -163,10 +164,12 @@ def _check_same(name: str, ref: torch.Tensor, **others: torch.Tensor) -> None:
 # model kernels
 # --------------------------------------------------------------------------- #
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d] in q's dtype (blockwise
-    online softmax, float32 statistics).  Inputs are made contiguous; any
-    ``S`` is taken as it is (the kernel masks the tails).  Raises under
+    online softmax, float32 statistics) of ``softmax(scale q kᵀ) v``,
+    ``scale`` ``1 / sqrt(d)`` unless given.  Inputs are made contiguous;
+    any ``S`` is taken as it is (the kernel masks the tails).  Raises under
     autograd (see the module docstring).
 
     ``DTensor`` inputs on a device mesh: each rank launches the kernel on
@@ -175,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     must divide the heads' shards so that no query group straddles two);
     any other layout raises ``ValueError`` naming it."""
     if isinstance(q, DTensor):
-        return _flash_on_shards(q, k, v, causal)
+        return _flash_on_shards(q, k, v, causal, scale)
     _refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or q.numel() == 0:
         raise ValueError(f"flash_attention: expected non-empty q [B,S,H,d] "
@@ -194,14 +197,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_same("flash_attention", q, k=k, v=v)
     if q.device.type == "cpu":
         return kref.attention_ref(q.float(), k.float(), v.float(),
-                                  causal=causal).to(q.dtype)
+                                  causal=causal, scale=scale).to(q.dtype)
     out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal)
+                               causal, 1.0 / math.sqrt(d) if scale is None
+                               else scale)
     _launches["flash_attention"] += 1
     return out
 
 
-def _flash_on_shards(q, k, v, causal: bool) -> DTensor:
+def _flash_on_shards(q, k, v, causal: bool, scale) -> DTensor:
     """:func:`flash_attention` of each rank's shard (see there)."""
     if not (isinstance(k, DTensor) and isinstance(v, DTensor)):
         raise ValueError("flash_attention: q is a DTensor and k, v are not")
@@ -224,7 +228,7 @@ def _flash_on_shards(q, k, v, causal: bool) -> DTensor:
                 f"({mesh.size(mesh.mesh_dim_names.index(dim_name))} ways) "
                 f"with {k.shape[2]} KV heads would split a query group")
     out = flash_attention(q.to_local(), k.to_local(), v.to_local(),
-                          causal=causal)
+                          causal=causal, scale=scale)
     return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
@@ -272,19 +276,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
+            groups: int = 1) -> torch.Tensor:
     """x [..., d]; weight [d] -> x's shape and dtype (float32 statistics).
-    ``x`` and ``weight`` may each be float32 or bfloat16; the kernel reads
-    each in its own dtype and widens it to float32 (exact), so no cast is
-    launched before it.  Raises under autograd (see the module docstring).
+    ``groups`` > 1: each of the ``groups`` equal parts of the last dim is
+    normalised by its own statistics (Mamba2's grouped gate norm), the
+    weight applied whole.  ``x`` and ``weight`` may each be float32 or
+    bfloat16; the kernel reads each in its own dtype and widens it to
+    float32 (exact), so no cast is launched before it.  Raises under
+    autograd (see the module docstring).
 
     A ``DTensor`` ``x`` on a device mesh: its rows are made whole (a shard
     of the last dim, or a partial sum, gathered; batch and sequence shards
     kept), the weight replicated, and each rank launches the kernel on its
     rows; the result is placed as those rows are."""
     if isinstance(x, DTensor):
-        return _rmsnorm_on_shards(x, weight, eps)
+        return _rmsnorm_on_shards(x, weight, eps, groups)
     _refuse_autograd("rmsnorm", x, weight)
     if x.dim() < 1 or x.numel() == 0:
         raise ValueError(f"rmsnorm: x must be non-empty [..., d], got "
@@ -293,18 +300,23 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     if tuple(weight.shape) != (d,) or weight.device != x.device:
         raise ValueError(f"rmsnorm: weight must be [{d}] on {x.device}, got "
                          f"{tuple(weight.shape)} on {weight.device}")
+    if groups < 1 or d % groups:
+        raise ValueError(f"rmsnorm: {groups} groups do not divide d = {d}")
     _check_model_dtype("rmsnorm", x.dtype)
     _check_model_dtype("rmsnorm weight", weight.dtype)
+    G = d // groups
     if x.device.type == "cpu":
-        return kref.rmsnorm_ref(x, weight, eps)
-    out = rmsnorm_cuda(x.contiguous().reshape(-1, d), weight.contiguous(),
-                       eps)
+        return kref.rmsnorm_ref(x.reshape(*x.shape[:-1], groups, G),
+                                weight.reshape(groups, G), eps
+                                ).reshape(x.shape)
+    out = rmsnorm_cuda(x.contiguous().reshape(-1, G), weight.contiguous(),
+                       eps, groups)
     _launches["rmsnorm"] += 1
     return out.reshape(x.shape)
 
 
-def _rmsnorm_on_shards(x: DTensor, weight: torch.Tensor, eps: float
-                       ) -> DTensor:
+def _rmsnorm_on_shards(x: DTensor, weight: torch.Tensor, eps: float,
+                       groups: int) -> DTensor:
     """:func:`rmsnorm` of each rank's whole rows (see there)."""
     _refuse_autograd("rmsnorm", x, weight)
     mesh, last = x.device_mesh, x.dim() - 1
@@ -315,5 +327,5 @@ def _rmsnorm_on_shards(x: DTensor, weight: torch.Tensor, eps: float
         weight = weight.redistribute(
             weight.device_mesh, [Replicate()] * weight.device_mesh.ndim
         ).to_local()
-    out = rmsnorm(x.redistribute(mesh, rows).to_local(), weight, eps)
+    out = rmsnorm(x.redistribute(mesh, rows).to_local(), weight, eps, groups)
     return DTensor.from_local(out, mesh, rows, run_check=False)

@@ -175,13 +175,15 @@ def alloc_active_set_rounds(psi: torch.Tensor, omega: torch.Tensor,
 # model kernels: the reference's oracles (src/repro/kernels/ref.py)
 # --------------------------------------------------------------------------- #
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
-    """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d].  fp32 softmax; grouped
-    heads by reshape, never by repeating k / v."""
+                  causal: bool = True, scale=None) -> torch.Tensor:
+    """q [B,S,H,d]; k,v [B,S,KV,d] -> [B,S,H,d].  fp32 softmax of the
+    scores times ``scale`` (``1 / sqrt(d)`` unless given); grouped heads by
+    reshape, never by repeating k / v."""
     B, S, H, d = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
     if causal:
         pos = torch.arange(S, device=q.device)
         mask = pos[:, None] >= pos[None, :]

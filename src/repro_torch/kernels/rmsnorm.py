@@ -17,12 +17,13 @@ import torch
 from repro_torch.kernels import _build
 
 
-def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
-                 eps: float) -> torch.Tensor:
+def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                 groups: int = 1) -> torch.Tensor:
     """Launch the kernel on the current stream of ``x``'s device.
 
-    ``x``: contiguous ``[rows, d]``; ``weight``: contiguous ``[d]``; each
-    float32 or bfloat16 (the kernel reads the weight in its own dtype), as
+    ``x``: contiguous ``[rows, d]``; ``weight``: contiguous ``[groups *
+    d]``, row ``r`` scaled by its part ``r % groups``; each float32 or
+    bfloat16 (the kernel reads the weight in its own dtype), as
     :func:`repro_torch.kernels.ops.rmsnorm` prepares them.  Allocates the
     output, does not synchronise.
     """
@@ -34,5 +35,6 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
         _build.launch(
             "rmsnorm", x.data_ptr(), weight.data_ptr(), out.data_ptr(),
             rows, d, float(eps), _build.DTYPE_CODES[x.dtype],
-            _build.DTYPE_CODES[weight.dtype], _build.current_stream(dev))
+            _build.DTYPE_CODES[weight.dtype], groups,
+            _build.current_stream(dev))
     return out

@@ -54,6 +54,9 @@ def preset_config(arch: str, preset: str) -> ArchConfig:
                                             d_ff_expert=512,
                                             first_dense_layers=1,
                                             d_ff_dense=2048)
+        if cfg.hybrid is not None and cfg.hybrid.published:
+            kw["hybrid"] = dataclasses.replace(cfg.hybrid, layer_ids=tuple(
+                i for i in cfg.hybrid.layer_ids if i < kw["num_layers"]))
         if cfg.mla is not None:
             kw["mla"] = dataclasses.replace(cfg.mla, q_lora_rank=0,
                                             kv_lora_rank=128,

@@ -20,8 +20,9 @@ decode_step`` for the families ``dense``, ``ssm``, ``hybrid``, ``moe``
 reference's strings: ``"xla"`` is the eager torch composite path,
 ``"flash"`` sends causal self-attention to the hand-written
 ``flash_attention`` kernel and ``"pallas"`` sends the SSD scan to the
-hand-written ``ssd_scan`` kernel; both kernel lowerings send every RMSNorm
-(of prefill, forward and decode) to the hand-written ``rmsnorm`` kernel.
+hand-written ``ssd_scan`` kernel; a hybrid sends both under either kernel
+lowering; both kernel lowerings send every RMSNorm (of prefill, forward
+and decode) to the hand-written ``rmsnorm`` kernel.
 MLA attention takes the composite path under every ``impl``, as in the
 reference.  ``loss`` is differentiable only under
 ``impl="xla"``: the kernels have no backward pass, so their wrappers refuse

@@ -78,8 +78,10 @@ def _sdpa_block(q, k, v, *, scale, causal, q_pos, k_pos):
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True, q_offset: int = 0,
-         chunk_q: Optional[int] = None) -> torch.Tensor:
-    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd].
+         chunk_q: Optional[int] = None,
+         scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd]; the scores scaled by
+    ``scale`` (``1 / sqrt(hd)`` unless given).
 
     When ``chunk_q`` is set and the sequence is causal and aligned, runs a
     loop over query blocks where block i only reads keys
@@ -87,13 +89,14 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if isinstance(q, DTensor):
         return on_head_shards(sdpa, q, k, v, causal=causal,
-                              q_offset=q_offset, chunk_q=chunk_q)
+                              q_offset=q_offset, chunk_q=chunk_q,
+                              scale=scale)
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     hd_v = v.shape[-1]
     assert H % KV == 0, (H, KV)
     G = H // KV
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     qg = q.reshape(B, Sq, KV, G, hd)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Sk, device=q.device)
@@ -134,18 +137,20 @@ def sdpa_decode(q, k_cache, v_cache, *, pos: int, scale=None):
 # --------------------------------------------------------------------------- #
 # GQA block
 # --------------------------------------------------------------------------- #
-def gqa_defs(cfg: ArchConfig, num_heads=None,
-             num_kv=None) -> Dict[str, ParamDef]:
+def gqa_defs(cfg: ArchConfig, num_heads=None, num_kv=None,
+             d_in=None) -> Dict[str, ParamDef]:
     """Projections keep the head dim explicit ([D, H, hd]), as the
-    reference does."""
+    reference does.  ``d_in``: the width q, k and v are projected from,
+    where it is not ``d_model`` (the output product still ends there)."""
     D = cfg.d_model
+    Din = d_in or D
     H = num_heads or cfg.num_heads
     KV = num_kv or cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     defs = {
-        "wq": ParamDef((D, H, hd), ("d_model", "heads", None)),
-        "wk": ParamDef((D, KV, hd), ("d_model", "kv_heads", None)),
-        "wv": ParamDef((D, KV, hd), ("d_model", "kv_heads", None)),
+        "wq": ParamDef((Din, H, hd), ("d_model", "heads", None)),
+        "wk": ParamDef((Din, KV, hd), ("d_model", "kv_heads", None)),
+        "wv": ParamDef((Din, KV, hd), ("d_model", "kv_heads", None)),
         "wo": ParamDef((H, hd, D), ("heads", None, "d_model")),
     }
     if cfg.qkv_bias:
@@ -170,8 +175,11 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                 kv_x: Optional[torch.Tensor] = None,
                 causal: bool = True,
                 use_rope: bool = True,
-                impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence attention.  Returns (output, kv cache contents)."""
+                impl: str = "xla",
+                scale: Optional[float] = None) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence attention, the scores scaled by ``scale`` (``1 /
+    sqrt(head_dim)`` unless given).  Returns (output, kv cache
+    contents)."""
     q, k, v = _project_qkv(p, x, x if kv_x is None else kv_x, cfg)
     if use_rope:
         if positions is None:
@@ -184,17 +192,18 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                                  and causal) else None
     with span("repro.attn.core"):
         if impl == "flash" and causal and kv_x is None:
-            out = kops.flash_attention(*mesh_heads(q, k, v), causal=True)
+            out = kops.flash_attention(*mesh_heads(q, k, v), causal=True,
+                                       scale=scale)
         else:
-            out = sdpa(q, k, v, causal=causal, chunk_q=chunk)
+            out = sdpa(q, k, v, causal=causal, chunk_q=chunk, scale=scale)
     with span("repro.attn.out"):
         y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, {"k": k, "v": v}
 
 
 def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
-               cfg: ArchConfig, *, use_rope: bool = True
-               ) -> Tuple[torch.Tensor, Dict]:
+               cfg: ArchConfig, *, use_rope: bool = True,
+               scale: Optional[float] = None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x [B,1,D]; cache {"k","v"} [B,S,KV,hd], written at
     row ``pos`` in place."""
     q, k, v = _project_qkv(p, x, x, cfg)
@@ -204,7 +213,7 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
         k = apply_rope(k, posb, cfg.rope_theta)
     cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    out = sdpa_decode(q, cache["k"], cache["v"], pos=pos)
+    out = sdpa_decode(q, cache["k"], cache["v"], pos=pos, scale=scale)
     y = mesh_einsum("bshe,hed->bsd", out, p["wo"])
     return y, cache
 

@@ -48,10 +48,11 @@ from repro_torch.obs.spans import span
 Tree = Any
 
 # the subtrees of a parameter tree that the reference stacks on a leading
-# axis (layers of one kind, or the hybrid's shared blocks); ``mtp/block`` is
-# a single layer and is not stacked
+# axis (layers of one kind, or the hybrid's shared blocks), and the
+# published Zamba2's per-application weights (``apps``), stacked alike;
+# ``mtp/block`` is a single layer and is not stacked
 STACKED = ("layers", "dense_layers", "ssm_layers", "shared", "enc_layers",
-           "dec_layers")
+           "dec_layers", "apps")
 
 # elements of float32 noise drawn at once by init_params: a larger tensor is
 # filled in pieces of this size, which bounds the transient memory of a
@@ -238,17 +239,23 @@ def checkpointed(fn: Callable, remat: str) -> Callable:
 # layers
 # --------------------------------------------------------------------------- #
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
-             impl: str = "xla") -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * weight`` over the last axis, with
+             impl: str = "xla", groups: int = 1) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * weight`` over the last axis (over
+    each of its ``groups`` equal parts, where that is more than one), with
     float32 statistics and the output in ``x``'s dtype.  ``impl="xla"`` is
     the eager composite ``kref.rmsnorm_ref`` (differentiable); a kernel
     lowering (``"flash"``, ``"pallas"``) is the hand-written ``rmsnorm``
     kernel through ``ops.rmsnorm``: one launch a norm on the card, a
     ``DTensor``'s on each rank's rows, and a refusal under autograd."""
     with span("repro.rms_norm"):
-        if impl == "xla":
+        if impl != "xla":
+            return kops.rmsnorm(x, weight, eps, groups)
+        if groups == 1:
             return kref.rmsnorm_ref(x, weight, eps)
-        return kops.rmsnorm(x, weight, eps)
+        d = x.shape[-1]
+        return kref.rmsnorm_ref(
+            x.reshape(*x.shape[:-1], groups, d // groups),
+            weight.reshape(groups, d // groups), eps).reshape(x.shape)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

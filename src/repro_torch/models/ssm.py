@@ -5,7 +5,16 @@ Twin of the reference's ``models/ssm.py``: chunked SSD for forward / prefill
 single-token decode, the depthwise causal conv as static shifts, and the
 reference's split z / x / B / C / dt projections.  ``impl="pallas"`` routes
 the scan to the hand-written ``ssd_scan`` kernel, anything else to the
-chunked torch form :func:`ssd_scan_ref`.
+chunked torch form :func:`ssd_scan_ref`.  The gated norm normalises each
+of the ``n_groups`` parts of d_inner on its own (Mamba2's
+``RMSNormGated``; one part, the reference's whole-width norm, at
+``n_groups`` 1).
+
+A prefill's mixer runs under the span ``repro.ssm``, with
+``repro.ssm.in_proj``, ``.conv``, ``.scan``, ``.gate_norm`` and
+``.out_proj`` inside it; a scan that takes the one-chunk fallback (a
+length the chunk does not divide) runs under ``repro.ssm.scan.whole`` in
+place of ``repro.ssm.scan``, so a trace counts them.
 
 Decode writes the new SSM and conv states into the cache tensors in place
 and returns them (the reference returns copies).
@@ -23,6 +32,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (ParamDef, batch_extent, layout,
                                        mesh_einsum, model_extent, placed_on,
                                        rms_norm, shard_as, shard_batch)
+from repro_torch.obs.spans import span
 
 
 def ssm_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
@@ -224,6 +234,11 @@ def _projections(p: Dict, h: torch.Tensor):
 def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
                 return_state: bool = False, impl: str = "xla"):
     """Full Mamba2 block (pre-norm + SSD + gated out).  x_in [B,S,D]."""
+    with span("repro.ssm"):
+        return _ssm_forward(p, x_in, cfg, return_state, impl)
+
+
+def _ssm_forward(p, x_in, cfg, return_state, impl):
     s = cfg.ssm
     D = cfg.d_model
     d_in = s.d_inner(D)
@@ -231,38 +246,48 @@ def ssm_forward(p: Dict, x_in: torch.Tensor, cfg: ArchConfig, *,
     P = s.head_dim
 
     h = rms_norm(x_in, p["norm"], cfg.norm_eps, impl)
-    z = mesh_einsum("bsd,de->bse", h, p["in_z"])
-    xp_pre, Bp_pre, Cp_pre = _projections(p, h)
-    dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])
+    with span("repro.ssm.in_proj"):
+        z = mesh_einsum("bsd,de->bse", h, p["in_z"])
+        xp_pre, Bp_pre, Cp_pre = _projections(p, h)
+        dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])
 
-    xp = F.silu(_causal_conv(xp_pre, p["conv_x"], p["conv_bias_x"]))
-    Bp = F.silu(_causal_conv(Bp_pre, p["conv_B"], p["conv_bias_B"]))
-    Cp = F.silu(_causal_conv(Cp_pre, p["conv_C"], p["conv_bias_C"]))
+    with span("repro.ssm.conv"):
+        xp = F.silu(_causal_conv(xp_pre, p["conv_x"], p["conv_bias_x"]))
+        Bp = F.silu(_causal_conv(Bp_pre, p["conv_B"], p["conv_bias_B"]))
+        Cp = F.silu(_causal_conv(Cp_pre, p["conv_C"], p["conv_bias_C"]))
 
     B, S, _ = x_in.shape
     xh = _heads_ready(xp, H).reshape(B, S, H, P)
     Bm = Bp.reshape(B, S, s.n_groups, s.d_state)
     Cm = Cp.reshape(B, S, s.n_groups, s.d_state)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-
     chunk = min(s.chunk_size, S)
-    if S % chunk:
+    whole = S % chunk != 0
+    if whole:
         chunk = S  # fall back to one chunk for odd lengths
-    # dt and A are rounded to the activations' dtype before the scan
-    y, state = ssd_scan_ref(xh, dt.to(xh.dtype), A.to(xh.dtype), Bm, Cm,
-                            chunk, impl=impl)
-    y = y + xh * p["D_skip"].to(xh.dtype)[None, None, :, None]
+    with span("repro.ssm.scan.whole" if whole else "repro.ssm.scan"):
+        dt = F.softplus(dt.float() + p["dt_bias"].float())
+        A = -torch.exp(p["A_log"].float())
+        # dt and A are rounded to the activations' dtype before the scan
+        y, state = ssd_scan_ref(xh, dt.to(xh.dtype), A.to(xh.dtype), Bm, Cm,
+                                chunk, impl=impl)
+        y = y + xh * p["D_skip"].to(xh.dtype)[None, None, :, None]
     # on a mesh, d_inner over "model" as z is: the gradient then comes back
     # whole to the heads view (torch 2.11 will not split a sharded dim there)
     y = shard_as(y.reshape(B, S, d_in), 0, 2)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, impl)
-    out = shard_batch(mesh_einsum("bse,ed->bsd", y, p["out_proj"]))
+    with span("repro.ssm.gate_norm"):
+        y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, impl,
+                     s.n_groups)
+    with span("repro.ssm.out_proj"):
+        out = shard_batch(mesh_einsum("bse,ed->bsd", y, p["out_proj"]))
     if return_state:
         # the conv state keeps the *pre-activation* projection tail so decode
-        # can replay the causal window exactly
-        pre = torch.cat([xp_pre, Bp_pre, Cp_pre], dim=-1)
-        return out, {"ssm": state, "conv": pre[:, -(s.d_conv - 1):, :]}
+        # can replay the causal window exactly; the tails are copied alone
+        # (a view of the whole projections would hold them as long as the
+        # cache: 81 layers x 243 MB at zamba2-7b's 4 x 4096)
+        tail = -(s.d_conv - 1)
+        pre = torch.cat([xp_pre[:, tail:], Bp_pre[:, tail:], Cp_pre[:, tail:]],
+                        dim=-1)
+        return out, {"ssm": state, "conv": pre}
     return out
 
 
@@ -302,7 +327,8 @@ def ssm_decode(p: Dict, x_in: torch.Tensor, cache: Dict, cfg: ArchConfig,
                         Bh.float(), Ch.float())
     y = y + xh.float() * p["D_skip"].float()[None, :, None]
     y = y.reshape(-1, d_in).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, impl)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, impl,
+                 s.n_groups)
     out = mesh_einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
     cache["ssm"].copy_(st)
     cache["conv"].copy_(window[:, 1:, :])

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.configs import SHAPES, ShapeCell, cells_for, get_config
+from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
 from repro_torch.configs import ARCH_NAMES
 from repro_torch.launch import dryrun, hlo_analysis
 from repro_torch.launch.mesh import MeshShape, make_production_mesh
@@ -49,7 +50,12 @@ def _reference_dryrun():
     return ref
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+# the configs both packages have: the published Zamba2 (zamba2-7b) is the
+# port's alone, with no reference to pair it with
+PAIRED = [a for a in ARCH_NAMES if a in REF_ARCH_NAMES]
+
+
+@pytest.mark.parametrize("arch", PAIRED)
 def test_analytic_model_flops_equal_reference(arch):
     from repro.configs import get_config as ref_config
     from repro.launch.hlo_analysis import analytic_model_flops as ref_flops

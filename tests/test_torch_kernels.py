@@ -612,7 +612,7 @@ def test_flash_head_dims_are_the_kernels_instantiations():
            / "flash_attention.cu").read_text()
     cases = tuple(int(d) for d in re.findall(
         r"^\s*REPRO_FLASH_CASE\((\d+)\)", src, re.M))
-    assert cases == fa.HEAD_DIMS == (16, 32, 64, 80, 128)
+    assert cases == fa.HEAD_DIMS == (16, 32, 64, 80, 128, 224)
 
 
 def _flash_tiles_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

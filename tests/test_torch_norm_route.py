@@ -132,7 +132,7 @@ def test_rmsnorm_binding_matches_the_kernels_interface():
                        src).group(1).split(",")
     names = [q.split()[-1].lstrip("*") for q in params]
     assert names == ["x", "w", "y", "rows", "d", "eps", "x_dtype", "w_dtype",
-                     "stream"]
+                     "groups", "stream"]
     assert len(_build._SIGNATURES["rmsnorm_launch"]) == len(names)
 
 
@@ -345,7 +345,8 @@ def test_llava_smoke_prefill_on_the_card_agrees_with_the_composite(
         ops.reset_launch_counts()
         build_model(cfg, impl="xla", device=card).prefill(params, batch)
         assert set(ops.launch_counts().values()) == {0}
-        monkeypatch.setattr(ops, "rmsnorm", kref.rmsnorm_ref)
+        monkeypatch.setattr(ops, "rmsnorm", lambda x, w, eps, groups=1:
+                            kref.rmsnorm_ref(x, w, eps))
         logits_c, cache_c = model.prefill(params, batch)
     assert ops.launch_counts()["rmsnorm"] == 0
     for got, want in ((logits, logits_c),

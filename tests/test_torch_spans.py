@@ -101,7 +101,8 @@ def test_attention_itself_lies_in_its_core_span(impl):
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m", "zamba2-2.7b",
-                                  "deepseek-v2-lite-16b", "whisper-medium"])
+                                  "zamba2-7b", "deepseek-v2-lite-16b",
+                                  "whisper-medium"])
 def test_every_family_opens_one_prefill_span(name):
     cfg, model, params, batch = _model(name)
     _, events = _traced(model, params, batch)
@@ -134,3 +135,40 @@ def test_off_a_prefill_makes_no_record_function(monkeypatch):
     with torch.inference_mode():
         logits, _ = model.prefill(params, batch)
     assert torch.equal(logits, traced)
+
+
+SSM_CHILDREN = {"repro.rms_norm", "repro.ssm.in_proj", "repro.ssm.conv",
+                "repro.ssm.gate_norm", "repro.ssm.out_proj"}
+
+
+@pytest.mark.parametrize("length,scan", [(16, "repro.ssm.scan"),
+                                         (12, "repro.ssm.scan.whole")])
+def test_a_hybrid_prefill_spans_its_mixers_and_shared_blocks(length, scan):
+    """The published Zamba2 at smoke size (chunk 8): one ``repro.ssm`` a
+    layer holding its pre-norm, products, convolution, scan, gate norm and
+    output product, the scan under ``repro.ssm.scan.whole`` where the chunk
+    does not divide the prompt; one ``repro.shared`` an application with its
+    norm, attention, adapter and linear inside."""
+    cfg = smoke_config("zamba2-7b")
+    model = build_model(cfg, impl="flash", device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    batch = model.make_inputs(ShapeCell("s", length, 2, "prefill"),
+                              torch.Generator().manual_seed(4))
+    _, events = _traced(model, params, batch)
+    mixers = [e for e in events if e.name == "repro.ssm"]
+    assert len(mixers) == cfg.num_layers
+    for e in mixers:
+        assert {n for n in _children(e) if n.startswith(PREFIX)} == \
+            SSM_CHILDREN | {scan}
+    shared = [e for e in events if e.name == "repro.shared"]
+    assert len(shared) == len(cfg.hybrid.layer_ids)
+    inner = {"repro.shared.norm", "repro.attn.qkv", "repro.attn.core",
+             "repro.shared.adapter", "repro.shared.linear"}
+    for e in shared:
+        names = set()
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            names.add(c.name)
+            stack += c.cpu_children
+        assert inner <= names

@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
 from repro.configs import smoke_config as ref_smoke_config
 from repro.models.api import Model as RefModel
 from repro.train import loop as ref_loop
@@ -328,7 +329,12 @@ def _decayed(flat_ranks):
     return {k for k, r in flat_ranks.items() if r >= 2}
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+# the configs both packages have: the published Zamba2 (zamba2-7b) is the
+# port's alone, with no reference to pair it with
+PAIRED = [a for a in ARCH_NAMES if a in REF_ARCH_NAMES]
+
+
+@pytest.mark.parametrize("name", PAIRED)
 def test_decayed_leaves_equal_reference(name):
     """AdamW decays a leaf of stacked rank >= 2, as the reference does:
     the port's ``decay_mask`` (per-layer lists) names the reference's set,

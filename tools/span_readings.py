@@ -16,7 +16,13 @@ device records, at least one a norm), ``idle_by_span`` and
 out of its host records, and each span's device
 seconds split as the readers split kernels (GEMM, the port's kernels, the
 rest), with the sums that check them against ``other_kernels.us_per_token``
-and the busy seconds.  Needs the card.
+and the busy seconds.  Where the cell runs a hybrid's Mamba2 mixers and
+shared blocks it also reads ``ssm.us_per_token``,
+``ssm.scan.us_per_token`` and ``shared.us_per_token`` (device µs a prompt
+position of every record launched inside a ``repro.ssm``, an SSD scan's
+or a ``repro.shared`` span, at any depth) and ``ssm.whole_scans`` (the
+scans a prefill that ran as one chunk of the whole prompt, under
+``repro.ssm.scan.whole``).  Needs the card.
 """
 import argparse
 import json
@@ -94,6 +100,33 @@ def kernel_share(st: spans.SpanTrace, span: str = "repro.rms_norm",
     return mine.get(span, 0) / max(every[span], norms)
 
 
+# inclusive readings: every device record launched inside the span, at
+# any depth, a prompt position
+INCLUSIVE = {"ssm.us_per_token": ("repro.ssm",),
+             "ssm.scan.us_per_token": ("repro.ssm.scan",
+                                       "repro.ssm.scan.whole"),
+             "shared.us_per_token": ("repro.shared",)}
+WHOLE_SCAN = "repro.ssm.scan.whole"
+
+
+def hybrid_readings(st: spans.SpanTrace, positions: int) -> dict:
+    """The hybrid's readings (see the module docstring); none where its
+    spans launched nothing in the window."""
+    chains = st.chains()
+    seconds = dict.fromkeys(INCLUSIVE, 0.0)
+    for i, s, e in st._in_window():
+        for metric, names in INCLUSIVE.items():
+            if any(n in chains[i] for n in names):
+                seconds[metric] += (e - s) * 1e-9
+    out = {m: 1e6 * v / positions for m, v in seconds.items()
+           if v > 0 and positions}
+    prefills = sum(s[0] == spans.PREFILL for s in st.spans)
+    if out and prefills:
+        out["ssm.whole_scans"] = sum(s[0] == WHOLE_SCAN
+                                     for s in st.spans) / prefills
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
@@ -112,6 +145,7 @@ def main(argv=None) -> int:
     share = kernel_share(st)
     if share is not None:
         readings["rms_norm.kernel_share"] = share
+    readings.update(hybrid_readings(st, view.positions))
     out = {
         "workload": args.workload, "seed": args.seed,
         "correct": result["correct"], "device": result["device"],
