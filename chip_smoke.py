@@ -92,7 +92,9 @@ Twelve phases, one JSON line each (phases 2 and 3 two, phase 7 five, phase
                        prefill asserted per model; rmsnorm launches a
                        prefill reported (a kernel lowering sends every
                        norm to it; two a layer and the final one asserted
-                       for qwen2 and llava, 65; none under impl="xla")
+                       for qwen2 and llava, 65; none under impl="xla");
+                       causal_conv_silu launches asserted, three a Mamba2
+                       mixer under a kernel lowering
   7. train             the training path (impl="xla": no kernel launches,
                        asserted): qwen2-0.5b at full width and depth in bf16
                        (S = 512, global batch 8, remat "dots"), 24 steps with
@@ -142,7 +144,10 @@ versions (flash_attention and ssd_scan at zamba2's shapes too: head dim 80,
 d_state 64; flash_attention at llava's prefill, head dim 128; rmsnorm with
 a bf16 weight read bit for bit as its float32 widening) and times them beside
 PyTorch's own call for the same function (rmsnorm also at llava's norms,
-[1368 | 8192 | 32768, 4096] bf16 with the bf16 weight)
+[1368 | 8192 | 32768, 4096] bf16 with the bf16 weight), and
+causal_conv_silu against the float32 composite at C 7168, 5120, 1536 and
+128, timed at zamba2-7b's (4, 4096, 7168) and (4, 4096, 128) beside its
+bytes bound and the eager composite
 (flash_attention in bf16, its tensor-core design, and in float32, its
 CUDA-core design; ssd_scan in bf16, its tensor-core design, held
 both to the sequential recurrence and to ssd_scan_chunked_ref with the
@@ -931,6 +936,18 @@ RMS_GROUPED = [((4, 949, 7168), 2, torch.bfloat16),
 # the model path's norm at llava's width, timed with its bf16 weight: chat's
 # shortest prompt (576 patches + 792 tokens) and two longdoc prompts
 RMS_LLAVA_ROWS = (1368, 8192, 32768)
+# causal_conv_silu (Mamba2's convolution, K = 4): zamba2-7b's x (7168) and
+# B / C (128) channels, zamba2-2.7b's d_inner (5120), mamba2-130m's (1536),
+# at one to three positions (under K), a strip edge (64) either side, the
+# cell's shortest prompt (949) and its longest; timed at the cell's largest
+# call, x and B / C
+CONV_SHAPES = [(B, S, C) for C in (7168, 5120, 1536, 128)
+               for B, S in ((1, 1), (4, 3), (1, 63), (4, 65), (4, 949),
+                            (1, 4095), (4, 4096))]
+CONV_TIMED = ((4, 4096, 7168), (4, 4096, 128))
+# against the float32 composite of the same inputs: float32 at 1e-5, bf16
+# within one output rounding (half a bf16 ulp is at most 2^-8 of the value)
+CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-6)}
 # the reference's tolerances (tests/test_kernels.py)
 MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = 1e-4
@@ -1021,6 +1038,13 @@ def ssd_bound(b, s, h, g, p, n, chunk, elem):
 
 def rms_bound(rows, d, elem, w_elem=4):
     return rows * d * 2 * elem + d * w_elem, 4 * rows * d, F32_FLOPS
+
+
+def conv_bound(B, S, C, K, elem, w_elem):
+    # x in, y out, the weights and bias once; K multiply-adds, the bias and
+    # the SiLU's exp, add and divide an element
+    bytes_ = 2 * B * S * C * elem + (K + 1) * C * w_elem
+    return bytes_, (2 * K + 4) * B * S * C, F32_FLOPS
 
 
 def bound_of(bytes_, flops, peak):
@@ -1254,10 +1278,61 @@ def phase_model_kernels():
             x, (d,), w_x, 1e-5)),
         **bound_of(*rms_bound(rows, d, 2)),
         "llava": [rms_llava_record(rows) for rows in RMS_LLAVA_ROWS]}
+
+    # causal_conv_silu against the float32 composite of the same inputs
+    errs, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    for shape in CONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = conv_inputs(n, *shape, dtype)
+            got = ops.causal_conv_silu(x, w, b)
+            want = ref.causal_conv_silu_ref(x.float(), w.float(), b.float())
+            torch.cuda.synchronize()
+            errs[dtype] = max(errs[dtype], assert_close(
+                f"causal_conv_silu{shape} {dtype}", got, want,
+                *CONV_TOL[dtype]))
+            n += 1
+    recs["causal_conv_silu"] = {
+        **conv_record(CONV_TIMED[0]), "cases": n,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_f32": errs[torch.float32],
+        "max_abs_err_bf16": errs[torch.bfloat16],
+        "tolerance": "vs causal_conv_silu_ref of the inputs widened to "
+                     "float32: f32 rtol=atol=1e-5, bf16 rtol=2^-8 atol=1e-6 "
+                     "(one output rounding)",
+        "library": None,
+        "bc": conv_record(CONV_TIMED[1])}
     emit("model_kernels", **recs,
          timing="CUDA events, 5 warm-up + 50 calls (plain: 20, ssd "
                 "plain: 3), median of 5 repeats, inputs L2-warm")
     return recs
+
+
+def conv_inputs(seed, B, S, C, dtype):
+    """x [B,S,C], w [4,C] and a nonzero bias, as the models hold them."""
+    rng = np.random.default_rng(seed)
+    return (normal(rng, (B, S, C), dtype),
+            (0.5 * normal(rng, (4, C))).to(dtype),
+            (0.1 * normal(rng, (C,))).to(dtype))
+
+
+def conv_record(shape):
+    """causal_conv_silu at one bf16 shape: its time by events and on the
+    device, beside its bytes bound and the eager composite the models ran
+    before (``F.silu(ref.causal_conv_ref(...))``, 15 passes a call)."""
+    x, w, b = conv_inputs(0, *shape, torch.bfloat16)
+    ms = median_ms(lambda: ops.causal_conv_silu(x, w, b))
+    device_us, _, _ = profiled(lambda: ops.causal_conv_silu(x, w, b),
+                               ("causal_conv_silu",))
+    rec = {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
+           "profiler_device_us": device_us["causal_conv_silu"],
+           "plain_ms": median_ms(lambda: torch.nn.functional.silu(
+               ref.causal_conv_ref(x, w, b)), iters=20),
+           "library_ms": None,
+           **bound_of(*conv_bound(*shape, 4, 2, 2))}
+    rec["bound_share"] = rec["bound_ms"] / ms
+    rec["device_bound_share"] = (rec["bound_ms"] * 1e3
+                                 / device_us["causal_conv_silu"])
+    return rec
 
 
 def rms_llava_record(rows, d=4096):
@@ -2180,6 +2255,13 @@ def kernel_launches(cfg, kernels) -> dict:
     return out
 
 
+def conv_launches(cfg, impl: str) -> int:
+    """``causal_conv_silu`` launches in one prefill: three a Mamba2 mixer
+    (x, B and C) under a kernel lowering, none under ``impl="xla"``."""
+    mixers = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return 0 if impl == "xla" else 3 * mixers
+
+
 def seeded(seed: int) -> torch.Generator:
     return torch.Generator(device=DEV).manual_seed(seed)
 
@@ -2388,13 +2470,17 @@ def serve_one(sv: Served):
             f"{sv.name} impl={sv.impl}: {got} launches in one prefill and "
             f"{sv.steps} decode steps, expected {want}")
     # a kernel lowering sends every norm of a prefill or decode step to the
-    # rmsnorm kernel; impl="xla" launches nothing
+    # rmsnorm kernel and each Mamba2 convolution of a prefill to
+    # causal_conv_silu; impl="xla" launches nothing
+    convs = conv_launches(scfg, sv.impl)
     if any(c for k, c in counts.items()
-           if k not in sv.kernels + ("rmsnorm",)) \
-            or bool(counts["rmsnorm"]) == same_path:
+           if k not in sv.kernels + ("rmsnorm", "causal_conv_silu")) \
+            or bool(counts["rmsnorm"]) == same_path \
+            or counts["causal_conv_silu"] != convs:
         raise AssertionError(f"{sv.name} impl={sv.impl}: other kernels "
                              f"launched, or rmsnorm where it should not be "
-                             f"or not where it should: {counts}")
+                             f"or not where it should, or not {convs} "
+                             f"causal_conv_silu launches: {counts}")
     if not finite:
         raise AssertionError(f"{sv.name}: non-finite logits while serving")
     if not bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()):
@@ -2438,7 +2524,8 @@ def serve_one(sv: Served):
     lk, _ = mk.prefill(params, rag)
     norms = ops.launch_counts()["rmsnorm"]
     lx = lk if same_path else mx.prefill(params, rag)[0]
-    if {k: ops.launch_counts()[k] for k in sv.kernels} != want:
+    if {k: ops.launch_counts()[k] for k in sv.kernels} != want \
+            or ops.launch_counts()["causal_conv_silu"] != convs:
         raise AssertionError(f"{sv.name}: ragged prefill missed a kernel")
     if scfg.family in ("dense", "vlm") and not same_path \
             and norms != 2 * scfg.num_layers + 1:
@@ -2452,6 +2539,7 @@ def serve_one(sv: Served):
         "batch": SERVE_B, "prompt": SERVE_S, "prefix": prefix(scfg),
         "decode_steps": sv.steps, "launches": got, "f32_parity": parity,
         "rmsnorm_launches_per_prefill": norms,
+        "causal_conv_silu_launches_per_prefill": convs,
         "prefill_ms": t_pre * 1e3, "prefill_ms_median5": pre_med,
         "prefill_profile": profile_rec,
         "prefill_tokens_per_s": SERVE_B * SERVE_S / t_pre,
@@ -2486,6 +2574,8 @@ def phase_serve():
             by_kernel.setdefault(kernel, {})[path] = n
         by_kernel.setdefault("rmsnorm", {})[path] = \
             rec["rmsnorm_launches_per_prefill"]
+        by_kernel.setdefault("causal_conv_silu", {})[path] = \
+            rec["causal_conv_silu_launches_per_prefill"]
     emit("serve_summary", seconds=time.perf_counter() - t0,
          launches_by_path=by_kernel)
     return by_kernel
@@ -3495,6 +3585,15 @@ def main() -> None:
                  "prefill of each served model counted)"),
              launches_by_path=served["rmsnorm"],
              at_llava=mk["rmsnorm"]["llava"]),
+        dict(row("causal_conv_silu", mk["causal_conv_silu"],
+                 sum(served["causal_conv_silu"].values()),
+                 "none: the reference's static shifts "
+                 "(src/repro/models/ssm.py:_causal_conv), fused by XLA",
+                 mk["causal_conv_silu"]["tolerance"],
+                 "models.ssm prefills of a kernel lowering: three launches "
+                 "a Mamba2 mixer (x, B and C)"),
+             launches_by_path=served["causal_conv_silu"],
+             at_bc=mk["causal_conv_silu"]["bc"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 
 KERNELS = ("event_step", "alloc_active_set", "rmsnorm", "flash_attention",
-           "ssd_scan")
+           "ssd_scan", "causal_conv_silu")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,11 +37,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # bit-for-bit to the numpy event core, which rounds `alloc * tg` before
 # subtracting; a fused multiply-add would not.  alloc_active_set and
 # ssd_scan keep it too, so that their numbers stay those of the design they
-# were measured with; flash_attention and rmsnorm contract freely.
+# were measured with; flash_attention, rmsnorm and causal_conv_silu contract
+# freely.
 SOURCE_FLAGS = {"event_step": ["-fmad=false"],
                 "alloc_active_set": ["-fmad=false"],
                 "ssd_scan": ["-fmad=false"],
-                "flash_attention": [], "rmsnorm": []}
+                "flash_attention": [], "rmsnorm": [], "causal_conv_silu": []}
 
 # element types of the model kernels (DTYPE_* in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +62,8 @@ _SIGNATURES = {
     # x, dt, A, B, C, y, state, cs, delta, totals, in_hi, in_lo,
     # b, S, h, g, p, px, n, nx, chunk, dtype, stream
     "ssd_scan_launch": [_c_ptr] * 12 + [_c_int] * 10 + [_c_ptr],
+    # x, w, b, y, B, S, C, K, x_dtype, w_dtype, stream
+    "causal_conv_silu_launch": [_c_ptr] * 4 + [_c_int] * 6 + [_c_ptr],
 }
 
 

@@ -9,12 +9,13 @@ kernels mask the ragged edge themselves, so nothing is padded here.
 No kernel has a backward pass (neither has the reference's: it cannot
 differentiate through its Pallas kernels).  A kernel writes into a fresh
 tensor outside autograd, so its output would silently be a constant to a
-backward pass; ``flash_attention``, ``ssd_scan`` and ``rmsnorm``, which the
-models reach, therefore raise where grad mode is on and an input requires
-grad, on every device, so that the CPU's differentiable plain path and the
-card agree.  Training takes ``impl="xla"``, as in the reference.  On a
-device mesh ``flash_attention`` and ``rmsnorm`` take ``DTensor``s and launch
-on each rank's shard.
+backward pass; ``flash_attention``, ``ssd_scan``, ``rmsnorm`` and
+``causal_conv_silu``, which the models reach, therefore raise where grad
+mode is on and an input requires grad, on every device, so that the CPU's
+differentiable plain path and the card agree.  Training takes
+``impl="xla"``, as in the reference.  On a device mesh ``flash_attention``
+and ``rmsnorm`` take ``DTensor``s and launch on each rank's shard (the
+models hand ``causal_conv_silu`` each rank's local rows and channels).
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.alloc_active_set import MAX_S, alloc_active_set_cuda
+from repro_torch.kernels.causal_conv_silu import (CHANNELS, KERNEL_SIZES,
+                                                  causal_conv_silu_cuda)
 from repro_torch.kernels.event_step import event_step_cuda
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  flash_attention_cuda)
@@ -329,3 +332,42 @@ def _rmsnorm_on_shards(x: DTensor, weight: torch.Tensor, eps: float,
         ).to_local()
     out = rmsnorm(x.redistribute(mesh, rows).to_local(), weight, eps, groups)
     return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def causal_conv_silu(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """x [B,S,C]; w [K,C]; b [C] -> ``silu(b + Σ_k w[k] · x[t − (K−1) +
+    k])`` per channel, x zero before t = 0: Mamba2's depthwise causal
+    convolution with its bias and SiLU, in x's dtype (float32 accumulation,
+    one rounding).  ``x`` and ``w`` may each be float32 or bfloat16, ``b``
+    in ``w``'s dtype; C a multiple of 8 and K in ``KERNEL_SIZES``.  Raises
+    under autograd (see the module docstring)."""
+    _refuse_autograd("causal_conv_silu", x, w, b)
+    if x.dim() != 3 or x.numel() == 0:
+        raise ValueError(f"causal_conv_silu: x must be a non-empty [B,S,C], "
+                         f"got {tuple(x.shape)}")
+    C = x.shape[2]
+    if w.dim() != 2 or w.shape[1] != C or tuple(b.shape) != (C,):
+        raise ValueError(f"causal_conv_silu: expected w [K,{C}] and b [{C}], "
+                         f"got {tuple(w.shape)} and {tuple(b.shape)}")
+    if w.shape[0] not in KERNEL_SIZES:
+        raise ValueError(f"causal_conv_silu: width K = {w.shape[0]} not in "
+                         f"{KERNEL_SIZES}")
+    if C % CHANNELS:
+        raise ValueError(f"causal_conv_silu: C = {C} is not a multiple of "
+                         f"{CHANNELS}")
+    _check_model_dtype("causal_conv_silu", x.dtype)
+    _check_model_dtype("causal_conv_silu weight", w.dtype)
+    for name, t in (("w", w), ("b", b)):
+        if t.device != x.device:
+            raise ValueError(f"causal_conv_silu: {name} is on {t.device}, x "
+                             f"on {x.device}")
+    if b.dtype != w.dtype:
+        raise ValueError(f"causal_conv_silu: b is {b.dtype}, w {w.dtype}; "
+                         f"they must agree")
+    if x.device.type == "cpu":
+        return kref.causal_conv_silu_ref(x, w, b)
+    out = causal_conv_silu_cuda(x.contiguous(), w.contiguous(),
+                                b.contiguous())
+    _launches["causal_conv_silu"] += 1
+    return out

@@ -4,7 +4,9 @@ These are the expressions of the reference's ``kernels/event_core.py``
 (``next_completion``, ``advance``, ``event_step``), of
 ``core/allocator.solve_resource`` vectorised over rows, and of the
 reference's model-kernel oracles in ``kernels/ref.py`` (``attention_ref``,
-``ssd_scan_sequential_ref``, ``rmsnorm_ref``), written as eager tensor code.
+``ssd_scan_sequential_ref``, ``rmsnorm_ref``), written as eager tensor code,
+and of Mamba2's causal convolution as the reference's ``models/ssm.py``
+writes it (``causal_conv_ref``, ``causal_conv_silu_ref``).
 They run on whatever device their inputs lie on; the CPU tests and the eager
 ``"torch"`` engine use them, and the CUDA kernels are held against them on
 the card.
@@ -21,6 +23,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 EPS = 1e-9
 
@@ -301,3 +304,24 @@ def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def causal_conv_ref(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv as static shifts.  x [B,S,C]; w [K,C]; b [C]:
+    ``b + Σ_k w[k] · x[t − (K−1) + k]``, x zero before t = 0, each product
+    and sum in the inputs' promoted dtype."""
+    K = w.shape[0]
+    out = x * w[K - 1]
+    for i in range(K - 1):
+        shift = K - 1 - i
+        out = out + F.pad(x, (0, 0, shift, 0))[:, :-shift] * w[i]
+    return out + b
+
+
+def causal_conv_silu_ref(x: torch.Tensor, w: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+    """``silu`` of :func:`causal_conv_ref`, in x's dtype: the plain version of
+    the ``causal_conv_silu`` kernel (which accumulates in float32 and rounds
+    once)."""
+    return F.silu(causal_conv_ref(x, w, b)).to(x.dtype)

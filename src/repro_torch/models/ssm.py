@@ -2,10 +2,14 @@
 
 Twin of the reference's ``models/ssm.py``: chunked SSD for forward / prefill
 (intra-chunk quadratic form + inter-chunk linear recurrence), O(1)-state
-single-token decode, the depthwise causal conv as static shifts, and the
+single-token decode, the depthwise causal conv with its SiLU, and the
 reference's split z / x / B / C / dt projections.  ``impl="pallas"`` routes
 the scan to the hand-written ``ssd_scan`` kernel, anything else to the
-chunked torch form :func:`ssd_scan_ref`.  The gated norm normalises each
+chunked torch form :func:`ssd_scan_ref`.  A prefill's convolutions follow
+the kernel lowerings as the norms do: ``impl="xla"`` runs the reference's
+static shifts (``kref.causal_conv_ref``) and the SiLU as eager ops,
+``"flash"`` / ``"pallas"`` the hand-written ``causal_conv_silu`` kernel,
+one launch for each of x, B and C.  The gated norm normalises each
 of the ``n_groups`` parts of d_inner on its own (Mamba2's
 ``RMSNormGated``; one part, the reference's whole-width norm, at
 ``n_groups`` 1).
@@ -29,6 +33,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.common import (ParamDef, batch_extent, layout,
                                        mesh_einsum, model_extent, placed_on,
                                        rms_norm, shard_as, shard_batch)
@@ -69,16 +74,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     device mesh each rank convolves its own rows and channels (DTensor's
     ``pad`` has no plan for every layout in every release)."""
     if isinstance(x, DTensor):
-        return _conv_on_shards(x, w, b)
-    K = w.shape[0]
-    out = x * w[K - 1]
-    for i in range(K - 1):
-        shift = K - 1 - i
-        out = out + F.pad(x, (0, 0, shift, 0))[:, :-shift] * w[i]
-    return out + b
+        return _conv_on_shards(x, w, b, _causal_conv)
+    return kref.causal_conv_ref(x, w, b)
 
 
-def _conv_on_shards(x: DTensor, w: DTensor, b: DTensor) -> DTensor:
+def _conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               impl: str) -> torch.Tensor:
+    """``silu`` of the causal conv: the composite under ``impl="xla"``, one
+    ``causal_conv_silu`` launch under a kernel lowering (each rank's on its
+    own rows and channels on a device mesh)."""
+    if impl == "xla":
+        return F.silu(_causal_conv(x, w, b))
+    if isinstance(x, DTensor):
+        return _conv_on_shards(x, w, b, kops.causal_conv_silu)
+    return kops.causal_conv_silu(x, w, b)
+
+
+def _conv_on_shards(x: DTensor, w: DTensor, b: DTensor, conv) -> DTensor:
+    """``conv`` of each rank's rows and channels of ``x``."""
     x = shard_as(x, 0, 2)
     mesh = x.device_mesh
     rows = placed_on(x, "data") or Replicate()
@@ -90,7 +103,7 @@ def _conv_on_shards(x: DTensor, w: DTensor, b: DTensor) -> DTensor:
         return t.redistribute(mesh, layout(mesh, Replicate(), on)).to_local(
             grad_placements=layout(mesh, grad, on))
     return DTensor.from_local(
-        _causal_conv(x.to_local(), local(w, 1), local(b, 0)), mesh,
+        conv(x.to_local(), local(w, 1), local(b, 0)), mesh,
         x.placements, run_check=False)
 
 
@@ -252,9 +265,9 @@ def _ssm_forward(p, x_in, cfg, return_state, impl):
         dt = mesh_einsum("bsd,de->bse", h, p["in_dt"])
 
     with span("repro.ssm.conv"):
-        xp = F.silu(_causal_conv(xp_pre, p["conv_x"], p["conv_bias_x"]))
-        Bp = F.silu(_causal_conv(Bp_pre, p["conv_B"], p["conv_bias_B"]))
-        Cp = F.silu(_causal_conv(Cp_pre, p["conv_C"], p["conv_bias_C"]))
+        xp = _conv_silu(xp_pre, p["conv_x"], p["conv_bias_x"], impl)
+        Bp = _conv_silu(Bp_pre, p["conv_B"], p["conv_bias_B"], impl)
+        Cp = _conv_silu(Cp_pre, p["conv_C"], p["conv_bias_C"], impl)
 
     B, S, _ = x_in.shape
     xh = _heads_ready(xp, H).reshape(B, S, H, P)

@@ -4,8 +4,8 @@
 model's own scale) and the grouped ``rmsnorm`` against their plain
 versions, and a prefill of the published form (head dim 224, two SSM
 groups, irregular hybrid ids) under a kernel lowering: one
-``flash_attention`` launch an application and one ``ssd_scan`` call a
-layer, its logits and caches in float32 within 1e-4 of the composite
+``flash_attention`` launch an application, one ``ssd_scan`` call and three
+``causal_conv_silu`` launches a layer, its logits and caches in float32 within 1e-4 of the composite
 path's scale.
 The tests skip without a card; on one they run with ``PYTHONPATH=src
 python -m pytest -q -m cuda tests/test_torch_hybrid_card.py``.
@@ -96,6 +96,8 @@ def test_a_published_hybrid_prefill_runs_both_kernels(card, impl, length):
     apps, layers = len(cfg.hybrid.layer_ids), cfg.num_layers
     assert counts["flash_attention"] == apps
     assert counts["ssd_scan"] == layers
+    # the x, B and C convolutions of each Mamba2 layer
+    assert counts["causal_conv_silu"] == 3 * layers
     # two norms an application and a layer, and the final one
     assert counts["rmsnorm"] == 2 * apps + 2 * layers + 1
     for a, b in [(lk, lx)] + list(zip(tree_leaves(ck), tree_leaves(cx))):

@@ -381,10 +381,12 @@ def span_readings(monkeypatch):
     return module
 
 
-def _trace(module, norms, outside=()):
-    """A profile made by hand: each norm a ``repro.rms_norm`` span of 1 ms
-    launching the kernels named, each launch's kernel running after the
-    span closed; ``outside`` kernels launched outside every span."""
+def _trace(module, norms, outside=(), span="repro.rms_norm", parent=None):
+    """A profile made by hand: each norm a ``span`` span of 1 ms launching
+    the kernels named, each launch's kernel running after the span closed;
+    ``outside`` kernels launched outside every span.  ``parent``: a span of
+    that name around each, which launches a GEMM of its own after the inner
+    span closed."""
     from types import SimpleNamespace
     tr, spans = module.tr, module.spans
 
@@ -397,18 +399,24 @@ def _trace(module, norms, outside=()):
 
     cuda = torch.autograd.DeviceType.CUDA
     out, corr = [event(tr.SPAN, 0, 100 * MS)], 10
-    launches = [(2 * i + 1, kernels) for i, kernels in enumerate(norms)]
+
+    def launch(kernel, call, run):
+        nonlocal corr
+        corr += 1
+        out.append(event("cudaLaunchKernel", call * MS, call * MS + 10_000,
+                         corr=corr))
+        out.append(event(kernel, run * MS, (run + 0.05) * MS, cuda, corr))
+
+    launches = [(3 * i + 1, kernels) for i, kernels in enumerate(norms)]
     launches.append((90, outside))
     for i, (at, kernels) in enumerate(launches):
         if i < len(norms):
-            out.append(event("repro.rms_norm", at * MS, (at + 1) * MS))
+            out.append(event(span, at * MS, (at + 1) * MS))
+            if parent:
+                out.append(event(parent, (at - 0.5) * MS, (at + 1.5) * MS))
+                launch("nvjet_tst_gemm", at + 1.2, at + 2.2)
         for j, kernel in enumerate(kernels):
-            corr += 1
-            call = (at + 0.1 * (j + 1)) * MS
-            out.append(event("cudaLaunchKernel", call, call + 10_000,
-                             corr=corr))
-            out.append(event(kernel, (at + 1.2 + 0.1 * j) * MS,
-                             (at + 1.25 + 0.1 * j) * MS, cuda, corr))
+            launch(kernel, at + 0.1 * (j + 1), at + 1.2 + 0.1 * j)
     return spans.collect(out)
 
 
@@ -427,3 +435,41 @@ def test_rms_norm_kernel_share_reads_each_norm_span(span_readings, norms,
                                                     share):
     st = _trace(span_readings, norms, outside=["nvjet_tst_gemm", RMS])
     assert span_readings.kernel_share(st) == share
+
+
+CONV = "void (anonymous namespace)::causal_conv_silu_kernel<__nv_bfloat16, " \
+       "__nv_bfloat16, 4>(...)"
+
+
+@pytest.mark.parametrize("convs,share", [
+    ([[CONV] * 3, [CONV] * 3], 1.0),
+    ([list(EAGER) * 7, list(EAGER) * 7], 0.0),
+    ([[CONV] * 3, list(EAGER) * 3], 3 / 9),
+    ([[]], None)])
+def test_ssm_conv_kernel_share_reads_each_conv_span(span_readings, convs,
+                                                    share):
+    """``ssm.conv.kernel_share``: the ``causal_conv_silu`` records among
+    those the ``repro.ssm.conv`` spans launched (the mixer's own GEMM and
+    the launches outside every span left out): 1.0 where each convolution
+    is the kernel alone."""
+    st = _trace(span_readings, convs, outside=[CONV], span="repro.ssm.conv",
+                parent="repro.ssm")
+    span, kernel = span_readings.KERNEL_SHARES["ssm.conv.kernel_share"]
+    assert (span, kernel) == ("repro.ssm.conv", "causal_conv_silu")
+    assert span_readings.kernel_share(st, span, kernel) == share
+
+
+def test_ssm_conv_us_per_token_counts_the_conv_spans_records(span_readings):
+    """``ssm.conv.us_per_token``: device µs a prompt position of the records
+    launched inside a ``repro.ssm.conv`` span; ``ssm.us_per_token`` counts
+    each mixer's GEMM besides (every record 50 µs, 10 positions)."""
+    st = _trace(span_readings, [[CONV] * 3, list(EAGER) * 2],
+                outside=[CONV], span="repro.ssm.conv", parent="repro.ssm")
+    got = span_readings.hybrid_readings(st, 10)
+    # (the hand-made records' ends are whole nanoseconds)
+    assert got["ssm.conv.us_per_token"] == pytest.approx(7 * 50 / 10,
+                                                         rel=1e-4)
+    assert got["ssm.us_per_token"] == pytest.approx(9 * 50 / 10, rel=1e-4)
+    assert "ssm.scan.us_per_token" not in got
+    assert span_readings.INCLUSIVE["ssm.conv.us_per_token"] == \
+        ("repro.ssm.conv",)

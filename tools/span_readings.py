@@ -11,18 +11,20 @@ result (its per-layer metrics and breakdown), the six span readings
 (``rms_norm.us_per_token``, ``rope.us_per_token``,
 ``mlp_gate.us_per_token``, ``prefill.idle_share``, ``layer.launches``, and
 ``rms_norm.kernel_share``: the ``rmsnorm`` kernel's share of the norms'
-device records, at least one a norm), ``idle_by_span`` and
+device records, at least one a norm; for a Mamba2 model also
+``ssm.conv.kernel_share``, the ``causal_conv_silu`` kernel's share of the
+``repro.ssm.conv`` spans' records), ``idle_by_span`` and
 ``device_by_span``, the breakdown the harness gives with the spans kept
 out of its host records, and each span's device
 seconds split as the readers split kernels (GEMM, the port's kernels, the
 rest), with the sums that check them against ``other_kernels.us_per_token``
 and the busy seconds.  Where the cell runs a hybrid's Mamba2 mixers and
-shared blocks it also reads ``ssm.us_per_token``,
+shared blocks it also reads ``ssm.us_per_token``, ``ssm.conv.us_per_token``,
 ``ssm.scan.us_per_token`` and ``shared.us_per_token`` (device µs a prompt
-position of every record launched inside a ``repro.ssm``, an SSD scan's
-or a ``repro.shared`` span, at any depth) and ``ssm.whole_scans`` (the
-scans a prefill that ran as one chunk of the whole prompt, under
-``repro.ssm.scan.whole``).  Needs the card.
+position of every record launched inside a ``repro.ssm``, a
+``repro.ssm.conv``, an SSD scan's or a ``repro.shared`` span, at any depth)
+and ``ssm.whole_scans`` (the scans a prefill that ran as one chunk of the
+whole prompt, under ``repro.ssm.scan.whole``).  Needs the card.
 """
 import argparse
 import json
@@ -100,9 +102,16 @@ def kernel_share(st: spans.SpanTrace, span: str = "repro.rms_norm",
     return mine.get(span, 0) / max(every[span], norms)
 
 
+# each reading of kernel_share: (the span, a part of its kernel's name)
+KERNEL_SHARES = {"rms_norm.kernel_share": ("repro.rms_norm", "rmsnorm"),
+                 "ssm.conv.kernel_share": ("repro.ssm.conv",
+                                           "causal_conv_silu")}
+
+
 # inclusive readings: every device record launched inside the span, at
 # any depth, a prompt position
 INCLUSIVE = {"ssm.us_per_token": ("repro.ssm",),
+             "ssm.conv.us_per_token": ("repro.ssm.conv",),
              "ssm.scan.us_per_token": ("repro.ssm.scan",
                                        "repro.ssm.scan.whole"),
              "shared.us_per_token": ("repro.shared",)}
@@ -142,9 +151,10 @@ def main(argv=None) -> int:
     rows = by_kind(st)
     other_s = sum(r.get("other_s", 0.0) for r in rows.values())
     readings = spans.readings(st, view.positions)
-    share = kernel_share(st)
-    if share is not None:
-        readings["rms_norm.kernel_share"] = share
+    for name, (span, kernel) in KERNEL_SHARES.items():
+        share = kernel_share(st, span, kernel)
+        if share is not None:
+            readings[name] = share
     readings.update(hybrid_readings(st, view.positions))
     out = {
         "workload": args.workload, "seed": args.seed,
